@@ -1,0 +1,139 @@
+"""CUDA occupancy-grid ray insertion: the counterpart of the TPU kernel
+sparse_gslam_tpu/ops/grid_pallas.py:insert_rays_pallas.
+
+The kernel (csrc/insert_rays.cu) is compiled with nvcc for sm_90a at
+first use into a shared library with a plain C interface, cached under
+sparse_gslam_tpu_torch/_build/ by a hash of its source and flags, and
+loaded with ctypes. `insert_rays_cuda` checks its inputs, launches the
+kernel on the current stream and counts its launches in
+`insert_rays_cuda.launches`. Its plain version is
+ops/grid.py:insert_rays_plain.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "insert_rays.cu")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                     "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build() -> dict:
+    """Compile the kernel library if its cached build is missing.
+
+    Returns {"path", "seconds" (0.0 when cached), "ptxas" (the
+    -Xptxas -v register/shared-memory report, "" when cached)}."""
+    with open(SOURCE, "rb") as f:
+        src = f.read()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    path = os.path.join(BUILD_DIR, f"libinsert_rays_{tag[:16]}.so")
+    if os.path.exists(path):
+        return {"path": path, "seconds": 0.0, "ptxas": ""}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+        capture_output=True, text=True,
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, path)  # atomic: concurrent builders race harmlessly
+    return {"path": path, "seconds": seconds,
+            "ptxas": (proc.stdout + proc.stderr).strip()}
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    info = build()
+    lib = ctypes.CDLL(info["path"])
+    fn = lib.insert_rays_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def insert_rays_cuda(
+    probs, origin, scan_origins, scan_points, scan_kind, hit_miss_p,
+    resolution: float, n_steps: int, size: int,
+):
+    """Launch the CUDA insertion kernel; same arguments and result as
+    ops/grid.py:insert_rays. Inputs are CUDA tensors: probs (size,size)
+    f32, origin (2,) f32, scan_origins (S,2) f32, scan_points (S,B,2)
+    f32, scan_kind (S,B) int8, hit_miss_p (2,) f32. Returns a new grid;
+    `probs` is not modified."""
+    dev = probs.device
+    if dev.type != "cuda":
+        raise ValueError(f"insert_rays_cuda needs CUDA tensors, got {dev}")
+    S, B = scan_kind.shape
+    f32 = torch.float32
+    _check("probs", probs, f32, (size, size), dev)
+    _check("origin", origin, f32, (2,), dev)
+    _check("scan_origins", scan_origins, f32, (S, 2), dev)
+    _check("scan_points", scan_points, f32, (S, B, 2), dev)
+    _check("scan_kind", scan_kind, torch.int8, (S, B), dev)
+    _check("hit_miss_p", hit_miss_p, f32, (2,), dev)
+    if n_steps < 1 or size < 1:
+        raise ValueError("n_steps and size must be positive")
+    fn = _library()
+    out = probs.clone()
+    stamp = torch.zeros((size, size), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(
+            out.data_ptr(), stamp.data_ptr(), origin.data_ptr(),
+            scan_origins.data_ptr(), scan_points.data_ptr(),
+            scan_kind.data_ptr(), hit_miss_p.data_ptr(),
+            ctypes.c_float(resolution), S, B, n_steps, size, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"insert_rays kernel launch failed: CUDA error "
+                           f"{rc}")
+    insert_rays_cuda.launches += 1
+    return out
+
+
+insert_rays_cuda.launches = 0
