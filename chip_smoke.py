@@ -12,8 +12,12 @@ code is not 0:
 2. build   -- compiles csrc/insert_rays.cu with nvcc (sm_90a) and
    prints the seconds and the -Xptxas -v report.
 3. kernel  -- the CUDA insertion kernel against its plain torch twin on
-   the card, on seeded cases from the test sizes up to the largest map
-   the code allows (G=2048, S_pad=4096); torch.equal is required.
+   the card, at every tile size it is built for, on seeded cases from
+   the test sizes up to the largest map the code allows (G=2048,
+   S_pad=4096), the backend's submap grids, rays on tile borders and a
+   grid edge no tile divides; torch.equal is required. One line per
+   case, then one line with every case's time beside its bound and the
+   first version's time (PERF.md, PR 1).
 4. main    -- the frontend-only runner on a temporary copy of
    datasets/sim-office on cuda (--no-backend --eval --map-png): the
    kernel must have launched, the ATE line and the counts must equal
@@ -72,6 +76,10 @@ RESULT_ATOL = 1e-6 + 1e-9
 # float32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+# the first version of the kernel (one block for the whole grid): its ms
+# on an H100 80GB HBM3 at 700 W, final call of PR 1 (PERF.md)
+V1_MS = {"slice_g320_s1024": 2.798, "max_g2048_s4096": 17.495,
+         "main_path_map": 2.656}
 
 
 def emit(obj) -> None:
@@ -93,33 +101,21 @@ def phase_device():
     emit({"phase": "device", "kind": name, "count": count,
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
-    return name, count
+    return name, count, smi
 
 
 def phase_build():
     info = grid_cuda.build()
-    emit({"phase": "build", "source": os.path.relpath(grid_cuda.SOURCE,
-                                                      REPO),
+    emit({"phase": "build",
+          "sources": [os.path.relpath(f, REPO)
+                      for f in grid_cuda.source_files()],
           "seconds": round(info["seconds"], 3),
           "cached": info["seconds"] == 0.0, "ptxas": info["ptxas"]})
 
 
-def seeded_case(seed, S, S_pad, B, G, res, n_steps, spread):
-    """Scans at seeded origins inside a (G*res)^2 map with beams up to
-    `spread` metres long, kinds mixed 0/1/2 as in a real range store;
-    scans S..S_pad are padding."""
-    rng = np.random.default_rng(seed)
-    ext = G * res
-    origins = np.zeros((S_pad, 2), np.float32)
-    origins[:S] = rng.uniform(0.1 * ext, 0.9 * ext, (S, 2))
-    ang = rng.uniform(-np.pi, np.pi, (S, B))
-    rng_len = rng.uniform(0.2, spread, (S, B))
-    pts = np.zeros((S_pad, B, 2), np.float32)
-    pts[:S] = origins[:S, None, :] + np.stack(
-        [np.cos(ang), np.sin(ang)], -1
-    ) * rng_len[..., None]
-    kind = np.zeros((S_pad, B), np.int8)
-    kind[:S] = rng.choice([0, 1, 1, 1, 2], size=(S, B))
+def case_args(origins, pts, kind, G, res, n_steps):
+    """insert_rays' arguments on the card: an empty (G, G) grid at world
+    origin 0, hit/miss p 0.7/0.4."""
     dev = torch.device("cuda")
     return (
         torch.zeros((G, G), dtype=torch.float32, device=dev),
@@ -132,10 +128,68 @@ def seeded_case(seed, S, S_pad, B, G, res, n_steps, spread):
     )
 
 
+def seeded_case(seed, S, S_pad, B, G, res, n_steps, spread, box=None):
+    """Scans at seeded origins with beams up to `spread` metres long,
+    kinds mixed 0/1/2 as in a real range store; scans S..S_pad are
+    padding. Origins are uniform in the square `box` = (lo, hi) metres,
+    by default the middle 80 % of the (G*res)^2 map."""
+    rng = np.random.default_rng(seed)
+    ext = G * res
+    lo, hi = box if box is not None else (0.1 * ext, 0.9 * ext)
+    origins = np.zeros((S_pad, 2), np.float32)
+    origins[:S] = rng.uniform(lo, hi, (S, 2))
+    ang = rng.uniform(-np.pi, np.pi, (S, B))
+    rng_len = rng.uniform(0.2, spread, (S, B))
+    pts = np.zeros((S_pad, B, 2), np.float32)
+    pts[:S] = origins[:S, None, :] + np.stack(
+        [np.cos(ang), np.sin(ang)], -1
+    ) * rng_len[..., None]
+    kind = np.zeros((S_pad, B), np.int8)
+    kind[:S] = rng.choice([0, 1, 1, 1, 2], size=(S, B))
+    return case_args(origins, pts, kind, G, res, n_steps)
+
+
+def submap_case(seed, G, res):
+    """A backend submap grid on sim-office: 20 scans (padded to 32) of
+    16 beams up to 10 m from origins in a 6 m box at the grid's
+    centre."""
+    c = G * res / 2
+    return seeded_case(seed, 20, 32, 16, G, res, 96, 10.0,
+                       box=(c - 3.0, c + 3.0))
+
+
+def tile_edge_case(seed, S, S_pad, B, G, n_steps, res=0.125, tile=16):
+    """Scans on the borders of the kernel's tiles: with a power-of-two
+    resolution every border is exact in float32. Origins lie on tile
+    corners or cell corners, endpoints at whole-cell offsets from them,
+    a third of the offsets a whole number of tiles and a third of the
+    rays parallel to an axis, running along a border."""
+    rng = np.random.default_rng(seed)
+    origins = np.zeros((S_pad, 2), np.float32)
+    on_tile = rng.random(S) < 0.5
+    origins[:S] = np.where(on_tile[:, None],
+                           rng.integers(1, G // tile, (S, 2)) * tile,
+                           rng.integers(1, G, (S, 2))) * res
+    off = rng.integers(-2 * tile, 2 * tile + 1, (S, B, 2))
+    snap = rng.random((S, B)) < 0.33
+    off[snap] = off[snap] // tile * tile
+    axis = rng.random((S, B)) < 0.33
+    off[axis, rng.integers(0, 2, int(axis.sum()))] = 0
+    pts = np.zeros((S_pad, B, 2), np.float32)
+    pts[:S] = origins[:S, None, :] + off * res
+    kind = np.zeros((S_pad, B), np.int8)
+    kind[:S] = rng.integers(0, 3, (S, B))
+    return case_args(origins, pts, kind, G, res, n_steps)
+
+
 def time_ms(fn, reps, warmup=2):
+    """Mean device ms of fn() over `reps` calls. The calls queue up
+    behind a sleeping kernel (~10 ms), so for fast kernels the events
+    time the card's work and not the host's cost of each launch."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -183,26 +237,57 @@ def insertion_bound(args):
             "operations", nbytes, ops)
 
 
+def n_blocks(size, tile):
+    """The kernel's launch grid: one block per tile of the grid."""
+    return ((size + tile - 1) // tile) ** 2
+
+
 def compare(name, args, kernel_reps, plain_reps):
-    """Kernel against its plain twin on the same CUDA inputs."""
-    out = insert_rays(*args)
+    """Kernel against its plain twin on the same CUDA inputs, at the
+    wrapper's own tile through the dispatching insert_rays and at every
+    tile the kernel is built for; `probs` must be left as it was."""
+    probs = args[0].clone()
     ref = insert_rays_plain(*args)
+    before = grid_cuda.insert_rays_cuda.launches
+    out = insert_rays(*args)
     torch.cuda.synchronize()
+    launches = grid_cuda.insert_rays_cuda.launches - before
     equal = bool(torch.equal(out, ref))
     err = float((out - ref).abs().max())
-    ms = time_ms(lambda: insert_rays(*args), kernel_reps)
+    sweep = []
+    for tile in grid_cuda.TILES:
+        out_t = grid_cuda.insert_rays_cuda(*args, tile=tile)
+        torch.cuda.synchronize()
+        equal_t = bool(torch.equal(out_t, ref))
+        equal &= equal_t
+        err = max(err, float((out_t - ref).abs().max()))
+        sweep.append({
+            "tile": tile, "blocks": n_blocks(args[8], tile),
+            "equal": equal_t,
+            "ms": time_ms(lambda: grid_cuda.insert_rays_cuda(
+                *args, tile=tile), kernel_reps),
+        })
+    equal &= bool(torch.equal(args[0], probs))
+    tile = grid_cuda.pick_tile(
+        args[8], torch.cuda.get_device_properties(0).multi_processor_count)
+    ms = next(r["ms"] for r in sweep if r["tile"] == tile)
     plain_ms = time_ms(lambda: insert_rays_plain(*args), plain_reps,
                        warmup=1)
     bound_ms, bound_by, nbytes, ops = insertion_bound(args)
     row = {
         "case": name, "G": args[8], "S_pad": args[4].shape[0],
-        "B": args[4].shape[1], "n_steps": args[7], "equal": equal,
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-        "ops": ops, "known_cells": int((out > 0).sum()),
-        "launches_so_far": grid_cuda.insert_rays_cuda.launches,
+        "B": args[4].shape[1], "n_steps": args[7], "res": args[6],
+        "tile": tile, "blocks": n_blocks(args[8], tile),
+        "launches": launches, "equal": equal, "max_abs_err": err,
+        "ms": ms, "sweep": sweep, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_share": bound_ms / ms, "bytes": nbytes, "ops": ops,
+        "known_cells": int((out > 0).sum()),
     }
     emit({"phase": "kernel", **row})
+    if launches != 1:
+        raise AssertionError(f"case {name}: one insertion made {launches} "
+                             f"kernel launches, not 1")
     if not equal:
         raise AssertionError(f"insert_rays kernel differs from its plain "
                              f"version on case {name}: max |d| {err}")
@@ -217,6 +302,13 @@ def phase_kernel():
                                           4.0)),
         # rays that leave the grid
         ("leaving_grid", seeded_case(5, 32, 32, 16, 64, 0.1, 96, 12.0)),
+        # the backend's two submap grids on sim-office
+        ("submap_g320_s32", submap_case(8, 320, 0.1)),
+        ("submap_hi_g576_s32", submap_case(9, 576, 0.05)),
+        # origins and endpoints on tile and cell borders
+        ("tile_edges", tile_edge_case(10, 48, 64, 16, 256, 96)),
+        # a grid edge that no tile divides
+        ("ragged_g100", seeded_case(11, 24, 32, 16, 100, 0.1, 96, 6.0)),
         # the sim-office map's shapes
         ("slice_g320_s1024", seeded_case(6, 648, 1024, 16, 320, 0.0957,
                                          96, 10.0)),
@@ -224,10 +316,22 @@ def phase_kernel():
         ("max_g2048_s4096", seeded_case(7, 4096, 4096, 16, 2048, 0.1,
                                         96, 10.0)),
     ]
+    rows = []
     for name, args in cases:
         big = args[8] >= 2048
-        compare(name, args, kernel_reps=5 if big else 20,
-                plain_reps=1 if big else 3)
+        rows.append(compare(name, args, kernel_reps=5 if big else 20,
+                            plain_reps=1 if big else 3))
+    return rows
+
+
+def emit_times(rows, smi):
+    """Every case's time beside its bound and the first version's."""
+    emit({"phase": "kernel_times", "card": smi, "cases": [{
+        "case": r["case"], "tile": r["tile"], "ms": r["ms"],
+        "ms_by_tile": {str(t["tile"]): t["ms"] for t in r["sweep"]},
+        "bound_ms": r["bound_ms"], "bound_share": r["bound_share"],
+        "v1_ms_pr1": V1_MS.get(r["case"]),
+    } for r in rows]})
 
 
 def phase_main():
@@ -300,11 +404,12 @@ def phase_main():
 
 
 def main() -> int:
-    name, count = phase_device()
+    name, count, smi = phase_device()
     phase_build()
-    phase_kernel()
+    rows = phase_kernel()
     launches, map_args = phase_main()
     row = compare("main_path_map", map_args, kernel_reps=20, plain_reps=3)
+    emit_times(rows + [row], smi)
     emit({"kernels": [{
         "name": "insert_rays",
         "route": "cuda",

@@ -1,13 +1,15 @@
 """CUDA occupancy-grid ray insertion: the counterpart of the TPU kernel
 sparse_gslam_tpu/ops/grid_pallas.py:insert_rays_pallas.
 
-The kernel (csrc/insert_rays.cu) is compiled with nvcc for sm_90a at
-first use into a shared library with a plain C interface, cached under
-sparse_gslam_tpu_torch/_build/ by a hash of its source and flags, and
-loaded with ctypes. `insert_rays_cuda` checks its inputs, launches the
-kernel on the current stream and counts its launches in
-`insert_rays_cuda.launches`. Its plain version is
-ops/grid.py:insert_rays_plain.
+The kernel (csrc/insert_rays.cu, one block per T x T tile of the grid,
+with the arithmetic it shares with a host build in
+csrc/insert_rays_tile.cuh) is compiled with nvcc for sm_90a at first
+use into a shared library with a plain C interface, cached under
+sparse_gslam_tpu_torch/_build/ by a hash of its source, the headers it
+includes and the flags, and loaded with ctypes. `insert_rays_cuda`
+checks its inputs, launches the kernel once on the current stream into
+a new output and counts its launches in `insert_rays_cuda.launches`.
+Its plain version is ops/grid.py:insert_rays_plain.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,6 +31,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# tile edges the kernel is built for
+TILES = (16, 32, 64)
 
 
 def _nvcc() -> str:
@@ -42,14 +47,32 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def source_files(path: str = SOURCE) -> list:
+    """`path` and every file it includes with #include "...", found
+    beside the including file, recursively."""
+    files, todo = [], [os.path.abspath(path)]
+    while todo:
+        f = todo.pop()
+        if f in files:
+            continue
+        files.append(f)
+        with open(f) as fh:
+            for name in re.findall(r'^\s*#\s*include\s*"([^"]+)"',
+                                   fh.read(), re.M):
+                todo.append(os.path.join(os.path.dirname(f), name))
+    return files
+
+
 def build() -> dict:
     """Compile the kernel library if its cached build is missing.
 
     Returns {"path", "seconds" (0.0 when cached), "ptxas" (the
     -Xptxas -v register/shared-memory report, "" when cached)}."""
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in source_files():
+        with open(f, "rb") as fh:
+            h.update(fh.read())
+    tag = h.hexdigest()
     path = os.path.join(BUILD_DIR, f"libinsert_rays_{tag[:16]}.so")
     if os.path.exists(path):
         return {"path": path, "seconds": 0.0, "ptxas": ""}
@@ -78,10 +101,25 @@ def _library():
     fn = lib.insert_rays_launch
     fn.argtypes = [ctypes.c_void_p] * 7 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+def pick_tile(size: int, n_sm: int) -> int:
+    """The largest tile whose launch gives each of the card's n_sm SMs
+    two blocks (as many as fit on one), else the smallest: a larger tile
+    screens fewer beams per cell, but too few blocks leave SMs idle."""
+    for tile in sorted(TILES, reverse=True):
+        if ((size + tile - 1) // tile) ** 2 >= 2 * n_sm:
+            return tile
+    return min(TILES)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(name, t, dtype, shape, device):
@@ -98,13 +136,16 @@ def _check(name, t, dtype, shape, device):
 
 def insert_rays_cuda(
     probs, origin, scan_origins, scan_points, scan_kind, hit_miss_p,
-    resolution: float, n_steps: int, size: int,
+    resolution: float, n_steps: int, size: int, tile: int | None = None,
 ):
     """Launch the CUDA insertion kernel; same arguments and result as
     ops/grid.py:insert_rays. Inputs are CUDA tensors: probs (size,size)
     f32, origin (2,) f32, scan_origins (S,2) f32, scan_points (S,B,2)
-    f32, scan_kind (S,B) int8, hit_miss_p (2,) f32. Returns a new grid;
-    `probs` is not modified."""
+    f32, scan_kind (S,B) int8, hit_miss_p (2,) f32. `tile` (one of
+    TILES, by default pick_tile's for this card) is the edge of the
+    square of cells one block updates: the launch has
+    ceil(size / tile)^2 blocks. Returns a new grid; `probs` is not
+    modified."""
     dev = probs.device
     if dev.type != "cuda":
         raise ValueError(f"insert_rays_cuda needs CUDA tensors, got {dev}")
@@ -118,16 +159,19 @@ def insert_rays_cuda(
     _check("hit_miss_p", hit_miss_p, f32, (2,), dev)
     if n_steps < 1 or size < 1:
         raise ValueError("n_steps and size must be positive")
+    if tile is None:
+        tile = pick_tile(size, _sm_count(dev.index))
+    if tile not in TILES:
+        raise ValueError(f"tile must be one of {TILES}, got {tile}")
     fn = _library()
-    out = probs.clone()
-    stamp = torch.zeros((size, size), dtype=torch.int32, device=dev)
+    out = torch.empty_like(probs)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
-            out.data_ptr(), stamp.data_ptr(), origin.data_ptr(),
+            out.data_ptr(), probs.data_ptr(), origin.data_ptr(),
             scan_origins.data_ptr(), scan_points.data_ptr(),
             scan_kind.data_ptr(), hit_miss_p.data_ptr(),
-            ctypes.c_float(resolution), S, B, n_steps, size, stream,
+            ctypes.c_float(resolution), S, B, n_steps, size, tile, stream,
         )
     if rc != 0:
         raise RuntimeError(f"insert_rays kernel launch failed: CUDA error "

@@ -33,6 +33,31 @@ def rays_case(seed, S, S_pad, B, G, n_steps, lo, hi, reach, res=0.1):
                 n_steps=n_steps, G=G)
 
 
+def tile_edge_case(seed, S, S_pad, B, G, n_steps, res=0.125, tile=16):
+    """Seeded scans on the borders of the CUDA kernel's tiles: with a
+    power-of-two resolution every border is exact in float32. Origins lie
+    on tile corners or cell corners, endpoints at whole-cell offsets from
+    them, a third of the offsets a whole number of tiles and a third of
+    the rays parallel to an axis (so whole rays run along a border)."""
+    rng = np.random.default_rng(seed)
+    origins = np.zeros((S_pad, 2), np.float32)
+    on_tile = rng.random(S) < 0.5
+    origins[:S] = np.where(on_tile[:, None],
+                           rng.integers(1, G // tile, (S, 2)) * tile,
+                           rng.integers(1, G, (S, 2))) * res
+    off = rng.integers(-2 * tile, 2 * tile + 1, (S, B, 2))
+    snap = rng.random((S, B)) < 0.33
+    off[snap] = off[snap] // tile * tile
+    axis = rng.random((S, B)) < 0.33
+    off[axis, rng.integers(0, 2, int(axis.sum()))] = 0
+    pts = np.zeros((S_pad, B, 2), np.float32)
+    pts[:S] = origins[:S, None, :] + off * res
+    kind = np.zeros((S_pad, B), np.int8)
+    kind[:S] = rng.integers(0, 3, (S, B))
+    return dict(origins=origins, pts=pts, kind=kind, res=res,
+                n_steps=n_steps, G=G)
+
+
 CASES = {
     # the Pallas parity case of tests/test_grid_matching.py
     "s8_b8_g64": rays_case(3, 8, 8, 8, 64, 24, 1.5, 4.5, 1.6),
@@ -41,6 +66,10 @@ CASES = {
                                     res=0.0957),
     # rays leaving the grid on every side
     "leaving_grid": rays_case(5, 16, 32, 8, 64, 96, 0.5, 6.0, 9.0),
+    # origins and endpoints on tile and cell borders
+    "tile_edges": tile_edge_case(6, 40, 64, 8, 128, 96),
+    # a grid edge that no tile of the CUDA kernel divides
+    "ragged_g100": rays_case(7, 24, 32, 8, 100, 96, 1.0, 9.0, 6.0),
 }
 
 
@@ -168,15 +197,25 @@ def test_map_png_roundtrip(tmp_path):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(CASES))
 def test_cuda_kernel_matches_plain(case):
-    """Needs a CUDA card: the kernel against its plain twin, bit for bit."""
+    """Needs a CUDA card: the kernel against its plain twin, bit for bit,
+    one launch per call, at every tile size; `probs` is left as it was."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the insertion kernel runs only on a GPU")
-    from sparse_gslam_tpu_torch.ops.grid_cuda import insert_rays_cuda
+    from sparse_gslam_tpu_torch.ops.grid_cuda import TILES, insert_rays_cuda
 
     a = tuple(x.cuda() if isinstance(x, torch.Tensor) else x
               for x in args_of(CASES[case], "torch"))
+    ref = grid.insert_rays_plain(*a)
+    probs = a[0].clone()
     before = insert_rays_cuda.launches
     out = grid.insert_rays(*a)
     torch.cuda.synchronize()
     assert insert_rays_cuda.launches == before + 1
-    assert torch.equal(out, grid.insert_rays_plain(*a))
+    assert torch.equal(out, ref)
+    for tile in TILES:
+        before = insert_rays_cuda.launches
+        out = insert_rays_cuda(*a, tile=tile)
+        torch.cuda.synchronize()
+        assert insert_rays_cuda.launches == before + 1
+        assert torch.equal(out, ref), tile
+    assert torch.equal(a[0], probs)
