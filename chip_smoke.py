@@ -2,10 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (sparse_gslam_tpu_torch) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--out OUT]
 
-Phases, each printed as one JSON line; any failure raises and the exit
-code is not 0:
+OUT (default smoke_out/ beside this script, gitignored) receives the
+files too long for standard output. Phases, each printed as one JSON
+line; any failure raises and the exit code is not 0:
 
 1. device  -- the card's name and count, and nvidia-smi's name and
    power limit (a raw line of its own as well). Fails without CUDA.
@@ -24,18 +25,34 @@ code is not 0:
    the float64 CPU JAX reference, the .result must match the committed
    reference (sparse_gslam_tpu_torch/data/sim-office-nobackend.result),
    and the map must equal the plain twin's on the same inputs.
-5. kernels -- one line per ported kernel: launches in the main path's
-   run, error against the plain twin, its time, the plain twin's time
-   and the least time the card could take, all at the main path's
-   inputs.
+5. backend -- the full runner (backend on: submaps, matcher, pins,
+   chain edges, DCS pose graph; --eval --map-png) on cuda under
+   SLAM_LOG_MATCHES=1. Every insertion of the run is recorded and
+   replayed through the plain twin (torch.equal each); there must be
+   105 launches (52 in precompute, 52 in rebuild_grids, 1 for the
+   map). The counts and the `backend:`/`closures:` lines must equal the
+   JAX CPU run's, the [match]/[chain]/[kfpin] decision lines
+   (written to OUT/decisions.log) are held against its log
+   (sparse_gslam_tpu_torch/data/sim-office-full.decisions), the ATE
+   line must equal its digits or lie within ATE_TOL of it, and the
+   .result must match sparse_gslam_tpu_torch/data/sim-office-full.result
+   within FULL_RESULT_ATOL.
+6. kernels -- one line per ported kernel: launches in the main path's
+   run (the backend run; launches_by_path has both runs), error against
+   the plain twin, its time, the plain twin's time and the least time
+   the card could take, summed over the backend run's 105 insertions.
 
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX
 or of the JAX package.
 """
 from __future__ import annotations
 
+import argparse
+import contextlib
+import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -46,8 +63,11 @@ import numpy as np
 import torch
 
 from sparse_gslam_tpu_torch import runner
+from sparse_gslam_tpu_torch.eval import maps as maps_mod
 from sparse_gslam_tpu_torch.eval.maps import map_range_data
 from sparse_gslam_tpu_torch.eval.relations import load_result
+from sparse_gslam_tpu_torch.models.backend import SubmapLoopCloser
+from sparse_gslam_tpu_torch.ops import grid as grid_mod
 from sparse_gslam_tpu_torch.ops import grid_cuda
 from sparse_gslam_tpu_torch.ops.grid import (
     insert_rays,
@@ -67,6 +87,38 @@ REFERENCE_ATE = (
     "ATE trans 0.2020 +- 0.2765 m, rot 1.740 +- 1.803 deg (391 relations)"
 )
 REFERENCE_COUNTS = {"keyframes": 286, "landmarks": 90, "rejected_ticks": 0}
+# The JAX package's full run (backend on) on this dataset, on the CPU in
+# float64 (python -m sparse_gslam_tpu.runner ... --eval)
+FULL_RESULT = os.path.join(
+    REPO, "sparse_gslam_tpu_torch", "data", "sim-office-full.result"
+)
+FULL_DECISIONS = os.path.join(
+    REPO, "sparse_gslam_tpu_torch", "data", "sim-office-full.decisions"
+)
+FULL_ATE = (
+    "ATE trans 0.0821 +- 0.0844 m, rot 0.772 +- 0.590 deg (391 relations)"
+)
+FULL_BACKEND = "backend: 26 submaps, 6 closures (0 pruned)"
+FULL_CLOSURES = (
+    "closures: precision 1.00 (6/6 true), ridge-aware precision 1.00 "
+    "(6/6), recall 1.00 (2/2 revisit segments detected)"
+)
+FULL_COUNTS = {"frames": 663, "keyframes": 286, "landmarks": 90,
+               "submaps": 26, "loop_closures": 6, "pruned": 0,
+               "local_edges": 15, "kf_pins": 4}
+FULL_LAUNCHES = {"precompute": 52, "rebuild_grids": 52, "map": 1}
+# When the ATE line's digits differ: the largest differences of the
+# trans and rot means from the reference that are accepted (m, deg)
+ATE_TOL = (0.002, 0.05)
+# .result of the full run: the closures' measurements and covariances
+# come from float32 refinement and FFT scores, which sum in another
+# order on the card; the pose graph spreads their ~1e-6 relative
+# differences over the trajectory (a few mm on this dataset, the
+# 6-decimal file format included)
+FULL_RESULT_ATOL = 5e-3
+# MISS lines print the best sub-threshold score at full precision:
+# compared at this tolerance (cuFFT against XLA's CPU FFT)
+MISS_SCORE_ATOL = 1e-5
 # .result poses: float64 atomics sum in a run-dependent order on the
 # card (~1e-15 relative per scatter-add); 1e-6 m/rad absorbs that, and
 # the 6-decimal file format can turn a 1e-12 difference into one unit
@@ -403,27 +455,256 @@ def phase_main():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+class InsertRecorder:
+    """Wraps ops/grid.insert_rays (which every grid build calls) to keep
+    each call's arguments, result and the phase that made it: the
+    innermost of the wrapped callers on the stack."""
+
+    def __init__(self):
+        self.calls = []
+        self.phase = ["other"]
+        self._orig = grid_mod.insert_rays
+
+    def insert(self, *args):
+        out = self._orig(*args)
+        self.calls.append((self.phase[-1], args, out))
+        return out
+
+    def tag(self, phase, fn):
+        def wrapped(*a, **k):
+            self.phase.append(phase)
+            try:
+                return fn(*a, **k)
+            finally:
+                self.phase.pop()
+        return wrapped
+
+    @contextlib.contextmanager
+    def active(self):
+        saved = (grid_mod.insert_rays, SubmapLoopCloser.precompute,
+                 SubmapLoopCloser.rebuild_grids, maps_mod.render_map)
+        grid_mod.insert_rays = self.insert
+        SubmapLoopCloser.precompute = self.tag("precompute", saved[1])
+        SubmapLoopCloser.rebuild_grids = self.tag("rebuild_grids", saved[2])
+        maps_mod.render_map = self.tag("map", saved[3])
+        try:
+            yield self
+        finally:
+            (grid_mod.insert_rays, SubmapLoopCloser.precompute,
+             SubmapLoopCloser.rebuild_grids, maps_mod.render_map) = saved
+
+
+class Tee(io.TextIOBase):
+    """Write to the real stdout and keep a copy."""
+
+    def __init__(self, out):
+        self.out = out
+        self.buf = io.StringIO()
+
+    def write(self, text):
+        self.buf.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def decision_lines(text):
+    return [ln for ln in text.splitlines()
+            if ln.startswith(("[match]", "[chain]", "[kfpin]", "[rematch]"))]
+
+
+def first_decision_difference(got, ref):
+    """Index and pair of the first decision line that differs (MISS
+    scores compared at MISS_SCORE_ATOL), or None."""
+    num = re.compile(r"best=([0-9.eE+-]+)")
+    for k in range(max(len(got), len(ref))):
+        a = got[k] if k < len(got) else "<missing>"
+        b = ref[k] if k < len(ref) else "<missing>"
+        ma, mb = num.search(a), num.search(b)
+        if ma and mb and num.sub("", a) == num.sub("", b):
+            if abs(float(ma.group(1)) - float(mb.group(1))) <= MISS_SCORE_ATOL:
+                continue
+        elif a == b:
+            continue
+        return {"index": k, "got": a, "reference": b}
+    return None
+
+
+def parse_ate(line):
+    m = re.match(r"ATE trans ([0-9.]+) \+- [0-9.]+ m, rot ([0-9.]+)", line)
+    return (float(m.group(1)), float(m.group(2))) if m else None
+
+
+def phase_backend(out_dir):
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_full_")
+    os.makedirs(out_dir, exist_ok=True)
+    try:
+        data = os.path.join(tmp, "sim-office")
+        shutil.copytree(DATASET, data)
+        png = os.path.join(tmp, "map.png")
+        rec = InsertRecorder()
+        tee = Tee(sys.stdout)
+        os.environ["SLAM_LOG_MATCHES"] = "1"
+        grid_cuda.insert_rays_cuda.launches = 0
+        t0 = time.perf_counter()
+        try:
+            with rec.active(), contextlib.redirect_stdout(tee):
+                r = runner.run([
+                    "--dataset-dir", data, "--dataset-name", "sim-office",
+                    "--eval", "--map-png", png, "--device", "cuda",
+                ])
+            torch.cuda.synchronize()
+        finally:
+            del os.environ["SLAM_LOG_MATCHES"]
+        total_s = time.perf_counter() - t0
+        launches = grid_cuda.insert_rays_cuda.launches
+        text = tee.buf.getvalue()
+        lines = text.splitlines()
+
+        def line_of(prefix):
+            return next((ln for ln in lines if ln.startswith(prefix)), "")
+
+        decisions = decision_lines(text)
+        log_path = os.path.join(out_dir, "decisions.log")
+        with open(log_path, "w") as fh:
+            fh.write("\n".join(decisions) + "\n")
+        with open(FULL_DECISIONS) as fh:
+            ref_decisions = fh.read().splitlines()
+        first_diff = first_decision_difference(decisions, ref_decisions)
+
+        # every grid build of the run against its plain twin
+        by_phase = {}
+        unequal = []
+        for k, (phase, args, out) in enumerate(rec.calls):
+            by_phase[phase] = by_phase.get(phase, 0) + int(out.is_cuda)
+            if not torch.equal(out, insert_rays_plain(*args)):
+                unequal.append((k, phase))
+
+        sysm = r.system
+        be = sysm.backend
+        counts = {
+            "frames": r.n_frames, "keyframes": len(sysm.frontend.keyframes),
+            "landmarks": len(sysm.frontend.landmarks),
+            "submaps": be.submap_count, "loop_closures": be.closure_count,
+            "pruned": be.false_closure_count,
+            "local_edges": be.local_edge_count,
+            "kf_pins": be.kf_edge_count,
+        }
+        times, poses = load_result(os.path.join(data, "sim-office.result"))
+        ref_times, ref_poses = load_result(FULL_RESULT)
+        same_times = bool(np.array_equal(times, ref_times))
+        d = poses - ref_poses if same_times else np.full((1, 3), np.inf)
+        if same_times:
+            d[:, 2] = wrap_angle(d[:, 2])
+        result_err = float(np.abs(d).max())
+        ate = line_of("ATE trans")
+        got_ate, ref_ate = parse_ate(ate), parse_ate(FULL_ATE)
+        ate_delta = (None if got_ate is None else
+                     [abs(got_ate[0] - ref_ate[0]), abs(got_ate[1] - ref_ate[1])])
+        ft = np.asarray(sysm.frontend_times)
+        bt = np.asarray(sysm.backend_times)
+        emit({
+            "phase": "backend", **counts,
+            "backend_line": line_of("backend:"), "ate": ate,
+            "closures_line": line_of("closures:"),
+            "kernel_launches": launches, "launches_by_phase": by_phase,
+            "grid_builds_replayed": len(rec.calls),
+            "grid_builds_unequal": unequal,
+            "decision_lines": len(decisions), "decision_log": log_path,
+            "first_decision_difference": first_diff,
+            "ate_delta_trans_rot": ate_delta,
+            "result_max_abs_err": result_err,
+            "result_atol": FULL_RESULT_ATOL,
+            "frame_loop_s": r.wall_s, "fps": r.n_frames / r.wall_s,
+            "total_s": total_s,
+            "frontend_mean_ms": float(ft.mean() * 1e3),
+            "frontend_max_ms": float(ft.max() * 1e3),
+            "frontend_ticks": len(ft),
+            "backend_mean_ms": float(bt.mean() * 1e3),
+            "backend_max_ms": float(bt.max() * 1e3),
+            "backend_ticks": len(bt),
+            "prof_s": {k: be.prof[k] for k in (
+                "kf_edges", "grid_build", "chain_edges", "match_snapshot",
+                "match_search", "match_correlate", "match_refine",
+                "match_apply")},
+        })
+        problems = []
+        if launches != sum(FULL_LAUNCHES.values()) or by_phase != FULL_LAUNCHES:
+            problems.append(f"{launches} insertion launches {by_phase}, "
+                            f"expected {FULL_LAUNCHES}")
+        if unequal:
+            problems.append(f"grid builds differ from the plain twin: "
+                            f"{unequal[:5]}")
+        if counts != FULL_COUNTS:
+            problems.append(f"counts {counts} != {FULL_COUNTS}")
+        if line_of("backend:") != FULL_BACKEND:
+            problems.append(f"{line_of('backend:')!r} != {FULL_BACKEND!r}")
+        if line_of("closures:") != FULL_CLOSURES:
+            problems.append(f"{line_of('closures:')!r} != "
+                            f"{FULL_CLOSURES!r}")
+        if ate != FULL_ATE and not (
+            ate_delta is not None and ate_delta[0] <= ATE_TOL[0]
+            and ate_delta[1] <= ATE_TOL[1]
+        ):
+            problems.append(f"ATE {ate!r} beyond {ATE_TOL} of {FULL_ATE!r}")
+        if not same_times or not result_err <= FULL_RESULT_ATOL:
+            problems.append(f".result differs from the reference: times "
+                            f"equal {same_times}, max |d| {result_err}")
+        if not os.path.getsize(png):
+            problems.append("empty map PNG")
+        if problems:
+            raise AssertionError("; ".join(problems))
+        return launches, rec.calls
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def time_run_calls(calls):
+    """The kernel, its plain twin and the bound, each summed over the
+    main path's insertions (device ms; the plain twin once per call)."""
+    ms = plain_ms = bound_ms = 0.0
+    err = 0.0
+    by = {"bytes": 0.0, "operations": 0.0}
+    for _, args, out in calls:
+        ms += time_ms(lambda: grid_cuda.insert_rays_cuda(*args), 5)
+        plain_ms += time_ms(lambda: insert_rays_plain(*args), 1, warmup=0)
+        b, bound_by, _, _ = insertion_bound(args)
+        bound_ms += b
+        by[bound_by] += b
+        err = max(err, float((insert_rays(*args) - out).abs().max()))
+    return ms, plain_ms, bound_ms, max(by, key=by.get), err
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=os.path.join(REPO, "smoke_out"))
+    args = ap.parse_args()
     name, count, smi = phase_device()
     phase_build()
     rows = phase_kernel()
     launches, map_args = phase_main()
     row = compare("main_path_map", map_args, kernel_reps=20, plain_reps=3)
     emit_times(rows + [row], smi)
+    full_launches, calls = phase_backend(args.out)
+    ms, plain_ms, bound_ms, bound_by, err = time_run_calls(calls)
     emit({"kernels": [{
         "name": "insert_rays",
         "route": "cuda",
         "source": "sparse_gslam_tpu_torch/csrc/insert_rays.cu",
         "replaces": "sparse_gslam_tpu/ops/grid_pallas.py:202",
-        "launches": launches,
-        "max_abs_err": row["max_abs_err"],
+        "launches": full_launches,
+        "launches_by_path": {"frontend_only": launches,
+                             "backend": full_launches},
+        "max_abs_err": max(err, row["max_abs_err"]),
         "matched": row["equal"],
         "tolerance": "bit-exact (torch.equal)",
-        "ms": row["ms"],
-        "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"],
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "library_ms": None,
+        "timed": f"sum over the backend run's {len(calls)} insertions",
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": count}})

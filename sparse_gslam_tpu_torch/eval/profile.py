@@ -1,11 +1,13 @@
-"""Where a frontend-only run's time goes, on a CUDA card or the CPU.
+"""Where a run's time goes, on a CUDA card or the CPU.
 
     python -m sparse_gslam_tpu_torch.eval.profile \\
         [--dataset-dir datasets/sim-office] [--dataset-name sim-office] \\
-        [--device cuda|cpu] [--window 300:400] [--out profile.json]
+        [--device cuda|cpu] [--window 300:400] [--backend] \\
+        [--out profile.json]
 
 Replays the dataset from a temporary copy (the dataset directory is
-never written) through the port's frontend and prints one JSON object:
+never written) through the port's frontend (and, with --backend, the
+loop-closing backend and its final cleanup) and prints one JSON object:
 
 - the frame loop's wall time, frames/s and the frontend tick's mean and
   max (host clock; each tick ends in a device-to-host copy, so it
@@ -13,6 +15,9 @@ never written) through the port's frontend and prints one JSON object:
   left out);
 - the LM solve's share of it: calls, LM iterations, and wall time spent
   inside `optimize_landmark_graph` (synchronised on the device);
+- with --backend, the backend tick's mean and max, the final
+  cleanup's seconds and the backend's own split by phase
+  (`SubmapLoopCloser.prof`);
 - for the frames of `--window`, a torch.profiler trace: the device's
   busy time (sum of kernel times) over the window's wall time, the
   number of kernel launches, the LM calls and iterations inside the
@@ -44,10 +49,10 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def profile_run(dataset_dir, dataset_name, device, window):
+def profile_run(dataset_dir, dataset_name, device, window, backend=False):
     device = torch.device(device)
     slam_cfg, ls_cfg = load_dataset_config(dataset_dir)
-    system = SlamSystem(slam_cfg, ls_cfg, enable_backend=False,
+    system = SlamSystem(slam_cfg, ls_cfg, enable_backend=backend,
                         device=device)
     frames = list(create_data_provider(
         slam_cfg.data_provider,
@@ -99,7 +104,10 @@ def profile_run(dataset_dir, dataset_name, device, window):
                 lm_at[w1] = dict(lm)
                 prof.__exit__(None, None, None)
                 overhead += time.perf_counter() - tb
+        tc = time.perf_counter()
+        system.final_cleanup()
         _sync(device)
+        cleanup = time.perf_counter() - tc
         wall = time.perf_counter() - t0 - overhead
     finally:
         solvers.lm_graph_chi2 = inner_chi2
@@ -114,6 +122,13 @@ def profile_run(dataset_dir, dataset_name, device, window):
 
     ft = np.asarray(system.frontend_times)
     fe = system.frontend
+    be = {}
+    if system.backend is not None:
+        bt = np.asarray(system.backend_times)
+        be = {"backend_mean_ms": float(bt.mean() * 1e3),
+              "backend_max_ms": float(bt.max() * 1e3),
+              "backend_ticks": len(bt), "cleanup_s": cleanup,
+              "backend_prof_s": dict(system.backend.prof)}
     return {
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
@@ -129,6 +144,7 @@ def profile_run(dataset_dir, dataset_name, device, window):
         "lm_ms_per_call": lm["seconds"] / max(lm["calls"], 1) * 1e3,
         "lm_ms_per_iteration": lm["seconds"] / max(lm["iterations"], 1)
         * 1e3,
+        **be,
         "window": prof_summary,
     }
 
@@ -174,6 +190,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--window", default="300:400",
                     help="frames traced by torch.profiler, start:stop")
+    ap.add_argument("--backend", action="store_true",
+                    help="run the loop-closing backend too")
     ap.add_argument("--out", default="", help="also write the JSON here")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -183,7 +201,8 @@ def main(argv=None):
     try:
         data = os.path.join(tmp, args.dataset_name)
         shutil.copytree(args.dataset_dir, data)
-        res = profile_run(data, args.dataset_name, args.device, (w0, w1))
+        res = profile_run(data, args.dataset_name, args.device, (w0, w1),
+                          backend=args.backend)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     text = json.dumps(res)

@@ -1,9 +1,11 @@
 """State handed between the JAX package and the port as numpy arrays.
 
 There are no model weights here: the state that crosses is the
-landmark graph and the occupancy grid. The JAX side converts its arrays
-with `np.asarray`; these functions build the port's tensors from them.
-The frontend uses `lm_graph_from_numpy` for its own per-keyframe graph.
+landmark graph, the pose graph and the occupancy grid. The JAX side
+converts its arrays with `np.asarray`; these functions build the port's
+tensors from them. The frontend uses `lm_graph_from_numpy` for its own
+per-keyframe graph, the backend `pose_graph_from_numpy` for every
+pose-graph solve.
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import numpy as np
 import torch
 
 from .ops.grid import SubmapGrid
-from .ops.solvers import LMGraphData
+from .ops.solvers import LMGraphData, PoseGraphData
 
 _FLOAT_FIELDS = ("poses", "odom_meas", "odom_info", "lms", "obs_meas",
                  "obs_info")
@@ -43,6 +45,25 @@ def lm_graph_from_numpy(fields: dict, device) -> LMGraphData:
         **_packed(fields, _BOOL_FIELDS, np.bool_, device),
     }
     return LMGraphData(**{k: t[k] for k in LMGraphData._fields})
+
+
+_PG_FLOAT_FIELDS = ("poses", "chain_meas", "chain_info", "clo_meas",
+                    "clo_info")
+_PG_INDEX_FIELDS = ("clo_i", "clo_j")
+_PG_BOOL_FIELDS = ("valid", "fixed", "chain_valid", "clo_valid")
+
+
+def pose_graph_from_numpy(fields: dict, device) -> PoseGraphData:
+    """Build the port's PoseGraphData from the fields of a JAX
+    PoseGraphData (or the backend's host arrays), given as numpy arrays
+    by name: float64, int64 indices and bool masks on `device`, in three
+    host-to-device copies."""
+    t = {
+        **_packed(fields, _PG_FLOAT_FIELDS, np.float64, device),
+        **_packed(fields, _PG_INDEX_FIELDS, np.int64, device),
+        **_packed(fields, _PG_BOOL_FIELDS, np.bool_, device),
+    }
+    return PoseGraphData(**{k: t[k] for k in PoseGraphData._fields})
 
 
 def grid_from_numpy(probs, origin, resolution, device) -> SubmapGrid:

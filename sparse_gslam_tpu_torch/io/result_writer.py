@@ -65,8 +65,7 @@ class TimingWriter:
     """Streams .ftime/.btime/.dtime files (log_runner.cpp:99-107), plus
     the .fflag/.bflag sidecars of the JAX package, which mark ticks that
     contained a compile (one 0/1 line per .ftime/.btime line). The port
-    has no compile phase, so its flags are always 0; .btime stays empty
-    until the backend is ported."""
+    has no compile phase, so its flags are always 0."""
 
     def __init__(self, prefix: str):
         self.f = open(prefix + ".ftime", "w")
@@ -78,6 +77,10 @@ class TimingWriter:
     def frontend(self, seconds: float):
         self.f.write(f"{seconds:.9f}\n")
         self.ff.write("0\n")
+
+    def backend(self, seconds: float):
+        self.b.write(f"{seconds:.9f}\n")
+        self.bf.write("0\n")
 
     def dataset(self, time: float):
         self.d.write(f"{time:.6f}\n")

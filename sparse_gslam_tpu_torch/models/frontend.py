@@ -8,7 +8,8 @@ device. State is functional-by-copy: the chi^2 rejection gate
 (drone.cpp:161-189) is a snapshot restore instead of g2o push/pop, and
 g2o's pointer graph becomes masked arrays rebuilt per keyframe from
 compact host lists. Port of sparse_gslam_tpu/models/frontend.py,
-without relative_chain_info (only the backend calls it).
+without relative_chain_info (only the backend's marginal chain-info
+mode calls it; ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -89,6 +90,8 @@ class Frontend:
         self.keyframes: list[Keyframe] = []
         self.landmarks: list[Landmark] = []
         self.obs_edges: list[ObsEdge] = []  # active-window edges only
+        # edges retired by the backend's window prunes (extend_chain)
+        self.archived_obs: list[ObsEdge] = []
         self.window_start = 0  # first pose in the active optimization
         self.traveled_dist = 0.0
         self.prev_odom = None  # last raw odom pose

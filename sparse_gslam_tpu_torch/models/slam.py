@@ -3,10 +3,11 @@
 
 Per frame: accumulate odometry delta -> beam-subsample the full scan
 (log_runner.cpp:130-143) -> multicloud window update -> line extraction
--> frontend tick. Timing of the frontend calls streams to .ftime like
-the reference (log_runner.cpp:146-158). Port of
-sparse_gslam_tpu/models/slam.py for the frontend-only configuration:
-the loop-closing backend is not ported yet (ROADMAP.md, queue 1).
+-> frontend tick; every match_interval frames the backend precompute +
+match runs (models/backend.py). Timing of the frontend and backend calls
+streams to .ftime/.btime like the reference (log_runner.cpp:146-158).
+Port of sparse_gslam_tpu/models/slam.py without the simulated-realtime
+mode (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -26,18 +27,17 @@ from .frontend import Frontend
 class SlamSystem:
     def __init__(self, config: SlamConfig, ls_params: ExtractorConfig,
                  enable_backend: bool = True, device="cuda"):
-        if enable_backend:
-            raise NotImplementedError(
-                "the loop-closing backend is not ported yet (ROADMAP.md, "
-                "queue 1: backend grids, pose-graph solvers, matcher, "
-                "backend.py); build SlamSystem with enable_backend=False"
-            )
         self.config = config
         self.ls_params = ls_params
         self.device = torch.device(device)
         self.mc = MulticloudConverter(config)
         self.frontend = Frontend(config, device=self.device)
         self.backend = None
+        if enable_backend:
+            from .backend import SubmapLoopCloser
+
+            self.backend = SubmapLoopCloser(config, self.frontend,
+                                            device=self.device)
         self.deltas: list[np.ndarray] = []
         self.zero_pose = np.zeros(3)
         self.last_pose = None
@@ -45,6 +45,7 @@ class SlamSystem:
         self.frame_idx = 0
         self.timing = None  # optional TimingWriter
         self.frontend_times: list[float] = []
+        self.backend_times: list[float] = []
 
     # ------------------------------------------------------------------
     def _subsample(self, full_range: np.ndarray):
@@ -74,6 +75,7 @@ class SlamSystem:
     # ------------------------------------------------------------------
     def process_frame(self, frame: Frame) -> None:
         """One driver callback (log_runner.cpp:109-174)."""
+        cfg = self.config
         cur_pose = np.asarray(frame.pose, dtype=np.float64)
         if self.last_pose is not None:
             delta = se2.relative(self.last_pose, cur_pose)
@@ -97,17 +99,42 @@ class SlamSystem:
             self.frontend_times.append(ft)
             if self.timing:
                 self.timing.frontend(ft)
+
+            if self.backend and self.frame_idx % cfg.match_interval == 0:
+                t0 = _time.perf_counter()
+                self.backend.precompute()
+                self.backend.match()
+                bt = _time.perf_counter() - t0
+                self.backend_times.append(bt)
+                if self.timing:
+                    self.timing.backend(bt)
         if self.timing:
             self.timing.dataset(frame.time)
         self.frame_idx += 1
 
     # ------------------------------------------------------------------
     def final_cleanup(self):
-        """Final re-match, closure pruning and pose-graph optimization
-        (log_runner.cpp:176-206): a no-op without a backend, as in the
-        JAX package."""
+        """Final re-match at min_score=0.5 + chi2 closure pruning + final
+        pose-graph optimization (log_runner.cpp:176-206); a no-op
+        without a backend. final_refine_rounds and final_joint are
+        refused when the backend is built (backend._refuse_unported)."""
         if self.backend is None:
             return
+        self.backend.loop_closure_min_score = 0.5
+        self.backend.precompute()
+        self.backend.match()
+        # pull the chain to the last keyframe so tail-of-run local
+        # refinement edges participate in the final optimization
+        self.backend.extend_chain()
+        if self.config.final_rematch:
+            # global re-match sweep: anchor density is the dominant
+            # remaining ATE term (see backend.rematch_all)
+            self.backend.rematch_all()
+        self.backend.prune_false_closures()
+        self.backend.optimize(
+            iterations=self.config.final_opt_iterations,
+            gnc_scale=self.config.final_gnc_scale,
+        )
 
     # ------------------------------------------------------------------
     def write_result(self, path: str):
@@ -117,12 +144,19 @@ class SlamSystem:
         odom = [
             (k.odom_times, k.odom_dposes) for k in self.frontend.keyframes
         ]
-        write_trajectory(path, lm_est, odom, len(lm_est), lm_est)
+        if self.backend is not None and self.backend.pose_count > 0:
+            pg = self.backend.pose_estimates()
+            last_opt = self.backend.last_opt_pose_index
+            # pad pose-graph estimates to keyframe count for the API
+            est = np.concatenate([pg, lm_est[len(pg) :]])
+        else:
+            est, last_opt = lm_est, len(lm_est)
+        write_trajectory(path, est, odom, last_opt, lm_est)
 
 
 def steady_stats(times):
-    """(mean, max, n) over the frontend ticks. The port has no compile
-    phase, so every tick counts as steady state."""
+    """(mean, max, n) over frontend or backend ticks. The port has no
+    compile phase, so every tick counts as steady state."""
     if not times:
         return 0.0, 0.0, 0
     a = np.asarray(times)

@@ -22,10 +22,12 @@ agree bit for bit; the odds update itself is not contracted by XLA.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 PMIN = 0.1
 PMAX = 0.9
@@ -275,6 +277,53 @@ def submap_insert_args(
         n_steps,
         spec.size,
     )
+
+
+def binomial_blur(x, s: int):
+    """(2s+1)-tap separable binomial (approx. Gaussian) blur with PMIN
+    border -- the reference's convolve2DFast smoothing kernel
+    (fast_correlative_scan_matcher_2d.cc:439-444; their 3x3 is s=1).
+    Rows then columns; each output sums its taps' products in tap order,
+    which is XLA's order on the CPU (bit-equal with the JAX package at
+    s=1, where every product is exact)."""
+    k = torch.tensor([math.comb(2 * s, i) for i in range(2 * s + 1)],
+                     dtype=x.dtype, device=x.device)
+    k = k / k.sum()
+    n = x.shape[0]
+
+    def conv_rows(a):  # valid convolution along dim 1
+        out = a[:, 0:n] * k[0]
+        for i in range(1, 2 * s + 1):
+            out = out + a[:, i:i + n] * k[i]
+        return out
+
+    xp = F.pad(x[None, None], (s, s, s, s), value=PMIN)[0, 0]
+    x1 = conv_rows(xp)  # (n + 2s, n)
+    return conv_rows(x1.T).T
+
+
+def precompute_pyramid(probs, depth: int, smooth: int = 0):
+    """Max-pool precomputation stack (PrecomputationGrid2D semantics,
+    fast_correlative_scan_matcher_2d.cc:368-468): level i holds, at
+    full resolution, the max of scores over the forward-looking
+    (2^i + 1)-wide square window at each cell, so that scoring a
+    candidate at stride 2^i upper-bounds all finer candidates beneath
+    it. As in the reference (width+1 at :468), even level 0 is a 2x2
+    max. Unknown cells score PMIN; the window is padded with -inf on
+    the right and bottom only. smooth > 0 blurs the base scores first
+    (binomial_blur), so every level stays an exact upper bound of the
+    smoothed level 0. Plain torch (max_pool2d, stride 1) on the device
+    of `probs`. Returns (depth, size, size) float32."""
+    score0 = torch.where(probs > 0.0, probs, PMIN)
+    if smooth > 0:
+        score0 = binomial_blur(score0, smooth)
+    levels = []
+    for i in range(depth):
+        width = (1 << i) + 1
+        padded = F.pad(score0[None, None], (0, width - 1, 0, width - 1),
+                       value=-torch.inf)
+        levels.append(F.max_pool2d(padded, width, stride=1)[0, 0])
+    return torch.stack(levels)
 
 
 def build_submap_grid(

@@ -1,13 +1,16 @@
-"""Landmark-graph Levenberg-Marquardt solver on torch tensors.
+"""Landmark-graph Levenberg-Marquardt and pose-graph Gauss-Newton
+solvers on torch tensors.
 
-Port of the landmark-graph half of sparse_gslam_tpu/ops/solvers.py
-(the reference's g2o LM + BlockSolver<-1,2>, src/sparse_gslam/src/
-graphs.cpp:9-37): fixed-shape masked edge tables, batched residuals and
-closed-form Jacobians, scatter-assembled normal equations, Schur
-elimination of the 2-DoF landmark blocks, and either a dense Cholesky
-of the reduced pose system or, for long windows, a block-tridiagonal
-solve of the pose chain with a Woodbury correction for the landmarks.
-The pose-graph half is not ported yet (ROADMAP.md, queue 1).
+Port of sparse_gslam_tpu/ops/solvers.py without the joint solve and
+posegraph_chi2 (ROADMAP.md). The landmark graph (the reference's g2o LM
++ BlockSolver<-1,2>, src/sparse_gslam/src/graphs.cpp:9-37): fixed-shape
+masked edge tables, batched residuals and closed-form Jacobians,
+scatter-assembled normal equations, Schur elimination of the 2-DoF
+landmark blocks, and either a dense Cholesky of the reduced pose system
+or, for long windows, a block-tridiagonal solve of the pose chain with
+a Woodbury correction for the landmarks. The pose graph (chain +
+DCS-robustified closures, submap_loop_closer.cpp:286-288): a dense
+(3N)^2 Jacobi-equilibrated Cholesky per Gauss-Newton iteration.
 
 Everything runs on the device of the input tensors, in their dtype
 (float64 in the port). Differences from the JAX package:
@@ -651,3 +654,161 @@ def optimize_landmark_graph(
         if rtol > 0.0 and bool((rel_impr < rtol) | (lam > 1e10)):
             break
     return g, chi2, dof
+
+
+# ---------------------------------------------------------------------------
+# robust kernel
+# ---------------------------------------------------------------------------
+
+
+def dcs_weight(chi2, phi):
+    """Dynamic Covariance Scaling weight s^2, s = min(1, 2 phi/(phi+chi2))
+    (g2o RobustKernelDCS::robustify; reference submap_loop_closer.cpp:41)."""
+    s = torch.clamp(2.0 * phi / (phi + chi2), max=1.0)
+    return s * s
+
+
+# ---------------------------------------------------------------------------
+# pose-graph system (chain + loop closures, DCS-robustified GN)
+# ---------------------------------------------------------------------------
+
+
+class PoseGraphData(NamedTuple):
+    """Fixed-shape pose-graph tensors (reference: include/graphs.h:30-40)."""
+
+    poses: torch.Tensor  # (N, 3)
+    valid: torch.Tensor  # (N,) bool
+    fixed: torch.Tensor  # (N,) bool
+    chain_meas: torch.Tensor  # (N, 3) edge i-1 -> i
+    chain_info: torch.Tensor  # (N, 3, 3)
+    chain_valid: torch.Tensor  # (N,) bool
+    clo_i: torch.Tensor  # (C,) int64
+    clo_j: torch.Tensor  # (C,) int64
+    clo_meas: torch.Tensor  # (C, 3)
+    clo_info: torch.Tensor  # (C, 3, 3)
+    clo_valid: torch.Tensor  # (C,) bool
+
+
+def closure_chi2(g: PoseGraphData):
+    """Raw chi2 per closure edge (for the 11.345 pruning gate,
+    log_runner.cpp:182-190)."""
+    ec = se2_edge_residual(g.poses[g.clo_i], g.poses[g.clo_j], g.clo_meas)
+    return torch.einsum("ni,nij,nj->n", ec, g.clo_info, ec)
+
+
+def _assemble_posegraph(g: PoseGraphData, phi):
+    """Block diagonal (N,3,3), chain off-diagonal (N,3,3) at (i-1, i),
+    closure off-diagonal (C,3,3) at (clo_i, clo_j) and gradient (N,3)
+    of the DCS-weighted normal equations."""
+    N = g.poses.shape[0]
+    dt, dev = g.poses.dtype, g.poses.device
+    ar = torch.arange(N, device=dev)
+    idx_prev = _idx_prev(N, dev)
+
+    def edge_terms(ii, jj, meas, info, valid, robust):
+        xi, xj = g.poses[ii], g.poses[jj]
+        e = se2_edge_residual(xi, xj, meas)
+        Ji, Jj = se2_edge_jacobians(xi, xj, meas)
+        w = valid.to(dt)
+        if robust:
+            chi2_e = torch.einsum("ni,nij,nj->n", e, info, e)
+            w = w * dcs_weight(chi2_e, phi)
+        Ji = Ji * (~g.fixed[ii]).to(dt)[:, None, None]
+        Jj = Jj * (~g.fixed[jj]).to(dt)[:, None, None]
+        info_w = info * w[:, None, None]
+        return e, Ji, Jj, info_w @ Ji, info_w @ Jj
+
+    Hd = torch.zeros((N, 3, 3), dtype=dt, device=dev)
+    b = torch.zeros((N, 3), dtype=dt, device=dev)
+
+    # chain edges: prev -> cur
+    e, Ji, Jj, OJi, OJj = edge_terms(
+        idx_prev, ar, g.chain_meas, g.chain_info, g.chain_valid, False
+    )
+    Hd.index_add_(0, idx_prev, _mm(Ji, OJi))
+    Hd.index_add_(0, ar, _mm(Jj, OJj))
+    H_off_chain = _mm(Ji, OJj)
+    b.index_add_(0, idx_prev, -_vec(OJi, e))
+    b.index_add_(0, ar, -_vec(OJj, e))
+
+    # closure edges (DCS)
+    ec, Jci, Jcj, OJci, OJcj = edge_terms(
+        g.clo_i, g.clo_j, g.clo_meas, g.clo_info, g.clo_valid, True
+    )
+    Hd.index_add_(0, g.clo_i, _mm(Jci, OJci))
+    Hd.index_add_(0, g.clo_j, _mm(Jcj, OJcj))
+    H_off_clo = _mm(Jci, OJcj)
+    b.index_add_(0, g.clo_i, -_vec(OJci, ec))
+    b.index_add_(0, g.clo_j, -_vec(OJcj, ec))
+    return Hd, H_off_chain, H_off_clo, b
+
+
+def _posegraph_dense_solve(g: PoseGraphData, Hd, H_off_chain, H_off_clo, b):
+    """Assemble the dense (3N,3N) H and Cholesky-solve it, with Jacobi
+    equilibration and a 1e-6 ridge on the equilibrated diagonal (the
+    JAX package's treatment: odometry informations span ~2e-4..6e3 on
+    real logs, cond(H) ~1e8-1e9). Inactive and fixed poses get identity
+    blocks and a zero step."""
+    N = g.poses.shape[0]
+    dt, dev = Hd.dtype, Hd.device
+    ar = torch.arange(N, device=dev)
+    free = (g.valid & (~g.fixed)).to(dt)
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    Hd = Hd + (1.0 - free)[:, None, None] * eye3 + 1e-8 * eye3
+    b = b * free[:, None]
+
+    H = torch.zeros((N, N, 3, 3), dtype=dt, device=dev)
+    H.index_put_((ar, ar), Hd, accumulate=True)
+    idx_prev = _idx_prev(N, dev)
+    cv = g.chain_valid.to(dt)[:, None, None]
+    H.index_put_((idx_prev, ar), H_off_chain * cv, accumulate=True)
+    H.index_put_((ar, idx_prev), H_off_chain.transpose(-1, -2) * cv,
+                 accumulate=True)
+    clv = g.clo_valid.to(dt)[:, None, None]
+    H.index_put_((g.clo_i, g.clo_j), H_off_clo * clv, accumulate=True)
+    H.index_put_((g.clo_j, g.clo_i), H_off_clo.transpose(-1, -2) * clv,
+                 accumulate=True)
+
+    Hdense = H.permute(0, 2, 1, 3).reshape(3 * N, 3 * N)
+    s = torch.rsqrt(torch.clamp(torch.diagonal(Hdense), min=1e-30))
+    Hs = Hdense * s[:, None] * s[None, :]
+    Hs = Hs + 1e-6 * torch.eye(3 * N, dtype=dt, device=dev)
+    chol, _ = torch.linalg.cholesky_ex(Hs)
+    y = torch.cholesky_solve((s * b.reshape(3 * N))[:, None], chol)[:, 0]
+    d = (s * y).reshape(N, 3)
+    return d * free[:, None]
+
+
+def gnc_phi_schedule(phi, iterations: int, init_scale: float,
+                     anneal_frac: float = 0.75, dtype=torch.float64,
+                     device="cpu"):
+    """Graduated non-convexity schedule for the DCS parameter: start at
+    phi*init_scale (large phi => w ~ 1, convex least squares) and decay
+    geometrically to the target phi over the first anneal_frac of the
+    iterations, then hold. init_scale=1 reproduces fixed-phi DCS (the
+    reference's g2o RobustKernelDCS behavior)."""
+    t = torch.arange(iterations, dtype=torch.float64)
+    T_a = max(int(anneal_frac * iterations), 1)
+    expo = torch.clamp(1.0 - t / T_a, 0.0, 1.0)
+    out = phi * torch.pow(torch.tensor(init_scale, dtype=torch.float64),
+                          expo)
+    return out.to(dtype=dtype, device=device)
+
+
+def optimize_pose_graph(
+    g: PoseGraphData, phi: float, iterations: int = 20,
+    gnc_init_scale: float = 1.0,
+) -> PoseGraphData:
+    """Gauss-Newton with DCS-reweighted closures, fixed iteration count
+    (pose_graph.opt.optimize(20), submap_loop_closer.cpp:286-288), on
+    the device of `g`; no host synchronization. gnc_init_scale > 1
+    enables graduated non-convexity (gnc_phi_schedule)."""
+    phis = gnc_phi_schedule(phi, iterations, gnc_init_scale,
+                            dtype=g.poses.dtype, device=g.poses.device)
+    for k in range(iterations):
+        Hd, Hoc, Hocl, b = _assemble_posegraph(g, phis[k])
+        d = _posegraph_dense_solve(g, Hd, Hoc, Hocl, b)
+        poses = g.poses + d
+        poses[:, 2] = wrap_angle(poses[:, 2])
+        g = g._replace(poses=poses)
+    return g

@@ -2,16 +2,16 @@
 
 Usage:
     python -m sparse_gslam_tpu_torch.runner --dataset-dir datasets/sim \\
-        --dataset-name sim --no-backend [--postfix -11] [--eval] \\
+        --dataset-name sim [--postfix -11] [--no-backend] [--eval] \\
         [--max-frames N] [--map-png map.png] [--device cuda|cpu]
 
 Reads <dir>/slam<postfix>.yaml (+ line_extractor.yaml), replays
 <dir>/<name>.log through the SLAM system, writes <dir>/<name>.result
 + .ftime/.btime/.dtime, optionally renders the global occupancy map to
 a PNG, and (with --eval) computes the relations ATE against
-<dir>/<name>.relations. Port of sparse_gslam_tpu/runner.py for the
-frontend-only configuration (--no-backend); the backend and the
-JAX-only flags are listed in ROADMAP.md as later work.
+<dir>/<name>.relations and, where <dir>/<name>.gt exists, the loop
+closures' precision and recall. Port of sparse_gslam_tpu/runner.py;
+its other flags are listed in ROADMAP.md as later work.
 """
 from __future__ import annotations
 
@@ -42,10 +42,8 @@ def run(argv=None) -> RunResult:
     ap.add_argument("--dataset-dir", required=True)
     ap.add_argument("--dataset-name", required=True)
     ap.add_argument("--postfix", default="")
-    ap.add_argument(
-        "--no-backend", action="store_true",
-        help="frontend only (required: the backend is not ported yet)",
-    )
+    ap.add_argument("--no-backend", action="store_true",
+                    help="frontend only")
     ap.add_argument("--eval", action="store_true")
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument(
@@ -54,7 +52,7 @@ def run(argv=None) -> RunResult:
     )
     ap.add_argument(
         "--device", default="cuda", choices=("cuda", "cpu"),
-        help="device for the LM solve and the map insertion",
+        help="device for the solvers, the grids and the matcher",
     )
     args = ap.parse_args(argv)
 
@@ -96,20 +94,32 @@ def run(argv=None) -> RunResult:
         f"{system.frontend.rejected_ticks} rejected ticks, "
         f"{wall:.1f}s wall ({n / max(wall, 1e-9):.1f} fps)"
     )
+    backend = system.backend
+    if backend is not None:
+        print(
+            f"backend: {backend.submap_count} submaps, "
+            f"{backend.closure_count} closures "
+            f"({backend.false_closure_count} pruned)"
+        )
     fm, fx, fn_ = steady_stats(system.frontend_times)
-    # same line as the JAX runner; the port has no backend yet and no
-    # compile phase
+    bm, bx, bn_ = steady_stats(system.backend_times)
+    # same line as the JAX runner; the port has no compile phase
     print(
         f"steady-state: frontend mean {fm * 1e3:.1f} ms / max "
-        f"{fx * 1e3:.1f} ms (n={fn_}), backend mean 0.0 ms "
-        f"/ max 0.0 ms (n=0); compile total 0.0 s"
+        f"{fx * 1e3:.1f} ms (n={fn_}), backend mean {bm * 1e3:.1f} ms "
+        f"/ max {bx * 1e3:.1f} ms (n={bn_}); compile total 0.0 s"
     )
 
     grid = None
     if args.map_png:
+        import numpy as np
+
         from .eval.maps import render_map, save_map_png
 
         est = system.frontend.estimates()
+        if backend is not None and backend.pose_count > 0:
+            pg = backend.pose_estimates()
+            est = np.concatenate([pg, est[len(pg):]])
         grid = render_map(
             system.frontend.keyframes, est,
             resolution=slam_cfg.map_resolution, device=args.device,
@@ -128,7 +138,51 @@ def run(argv=None) -> RunResult:
             print(ate)
         else:
             print(f"no relations file at {rel}; skipping eval")
+        gt_path = prefix + ".gt"
+        if os.path.exists(gt_path) and backend is not None and (
+            backend.closures
+        ):
+            _print_closure_eval(system, gt_path, slam_cfg)
     return RunResult(system, n, wall, ate, grid)
+
+
+def _print_closure_eval(system, gt_path, slam_cfg):
+    """The `local refinement edges:`, `consistency-suppressed closures:`
+    and `closures:` lines of the JAX runner (runner.py:274-324)."""
+    from .eval.closures import closure_pr, load_gt
+
+    backend = system.backend
+    gt_times, gt_poses = load_gt(gt_path)
+    kfs = system.frontend.keyframes
+    loops = [
+        c for c in backend.closures
+        if c.active and not c.suppressed and c.kind == "loop"
+    ]
+    triples = [
+        (kfs[c.i].odom_times[0], kfs[c.j].odom_times[0], c.meas)
+        for c in loops
+    ]
+    if backend.local_edge_count:
+        print(f"local refinement edges: {backend.local_edge_count}")
+    n_sup = backend.suppressed_closure_count
+    if n_sup:
+        print(f"consistency-suppressed closures: {n_sup}")
+    pr = closure_pr(
+        triples, gt_times, gt_poses,
+        # a closure across the full candidate-gate distance is
+        # legitimate; what makes one false is a wrong MEASUREMENT
+        match_radius=max(6.0, slam_cfg.max_match_distance + 2.0),
+        infos=[c.info for c in loops],
+    )
+    print(
+        f"closures: precision {pr['precision']:.2f} "
+        f"({pr['n_true']}/{pr['n_closures']} true), "
+        f"ridge-aware precision {pr['precision_ridge']:.2f} "
+        f"({pr['n_true_ridge']}/{pr['n_closures']}), "
+        f"recall {pr['recall']:.2f} "
+        f"({pr['n_detected']}/{pr['n_segments']} revisit "
+        f"segments detected)"
+    )
 
 
 def main(argv=None):

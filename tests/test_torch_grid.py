@@ -136,6 +136,23 @@ def test_build_submap_grid_matches_jax():
     assert port.probs.dtype == torch.float32
 
 
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("smooth", [0, 1])
+def test_precompute_pyramid_bit_equal(depth, smooth):
+    """The max-pool pyramid (and the s=1 binomial blur before it) bit
+    for bit with the JAX package, on a seeded grid with unknown cells
+    and an edge that no window divides."""
+    rng = np.random.default_rng(depth)
+    probs = np.where(rng.random((100, 100)) < 0.4,
+                     rng.uniform(0.1, 0.9, (100, 100)), 0).astype(np.float32)
+    ref = np.asarray(jgrid.precompute_pyramid(jnp.asarray(probs), depth,
+                                              smooth=smooth))
+    got = grid.precompute_pyramid(torch.from_numpy(probs), depth,
+                                  smooth=smooth)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
 @pytest.mark.parametrize("n_scans,beams,S_pad,B",
                          [(1, 3, 32, 4), (40, 11, 64, 16), (33, 5, 64, 8)])
 def test_pack_scans_buckets(n_scans, beams, S_pad, B):

@@ -1,7 +1,8 @@
-"""The port's frontend-only slice end to end against the JAX package:
-the first 150 frames of sim-office through both SlamSystems on the CPU
-(float64), the global map through both render_maps, and the port's
-runner in a process of its own that never imports jax.
+"""The port end to end against the JAX package: the first 150 frames of
+sim-office through both frontend-only SlamSystems on the CPU (float64),
+the global map through both render_maps, and the port's runner, with
+and without the backend, in a process of its own that never imports
+jax. (The backend-on systems are compared in test_torch_backend.py.)
 
 Tolerance for keyframe estimates: atol=1e-8. The two LM solvers sum in
 different orders (and the port's long-window path uses cyclic
@@ -14,6 +15,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from sparse_gslam_tpu.eval.maps import render_map as j_render_map
 from sparse_gslam_tpu.io.providers import create_data_provider
@@ -28,6 +30,17 @@ from sparse_gslam_tpu_torch.utils.config import (
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OFFICE = os.path.join(ROOT, "datasets", "sim-office")
 N_FRAMES = 150
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The suite runs in several worker processes at once; one torch
+    thread per worker keeps them from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 
 @pytest.fixture(scope="module")
@@ -72,12 +85,15 @@ def test_render_map_matches_jax_bitwise(runs):
     assert r_t == r_j
 
 
-def test_backend_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SlamSystem(*t_load_dataset_config(OFFICE), device="cpu")
+# the backend-on run goes through the first live loop closure
+# (query mid 174, accepted at frame 425)
+RUNNER_CASES = {"frontend_only": (["--no-backend"], N_FRAMES),
+                "backend": ([], 430)}
 
 
-def test_runner_subprocess_imports_no_jax(tmp_path):
+@pytest.mark.parametrize("case", list(RUNNER_CASES))
+def test_runner_subprocess_imports_no_jax(tmp_path, case):
+    flags, frames = RUNNER_CASES[case]
     data = tmp_path / "sim-office"
     shutil.copytree(OFFICE, data)
     png = tmp_path / "map.png"
@@ -85,18 +101,22 @@ def test_runner_subprocess_imports_no_jax(tmp_path):
         "import sys\n"
         "from sparse_gslam_tpu_torch import runner\n"
         f"runner.main(['--dataset-dir', {str(data)!r}, '--dataset-name', "
-        f"'sim-office', '--device', 'cpu', '--no-backend', '--max-frames', "
-        f"'{N_FRAMES}', '--eval', '--map-png', {str(png)!r}])\n"
+        f"'sim-office', '--device', 'cpu', *{flags!r}, '--max-frames', "
+        f"'{frames}', '--eval', '--map-png', {str(png)!r}])\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'sparse_gslam_tpu.')) or m == 'sparse_gslam_tpu']\n"
         "print('IMPORTED', bad)\n"
     )
-    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "2"}
+    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, env=env, timeout=300, cwd=tmp_path)
+                         text=True, env=env, timeout=600, cwd=tmp_path)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "IMPORTED []" in out.stdout
-    assert f"done: {N_FRAMES} frames" in out.stdout
+    assert f"done: {frames} frames" in out.stdout
     assert "ATE trans" in out.stdout
+    assert ("backend: " in out.stdout) == (case == "backend")
+    if case == "backend":
+        assert "backend: 17 submaps, 1 closures (0 pruned)" in out.stdout
+        assert "closures: precision" in out.stdout
     assert png.stat().st_size > 0
     assert (data / "sim-office.result").stat().st_size > 0

@@ -1,8 +1,9 @@
-"""The port's landmark-graph LM solver (sparse_gslam_tpu_torch.ops.solvers)
-against the JAX package's, on the same seeded float64 graphs.
+"""The port's solvers (sparse_gslam_tpu_torch.ops.solvers): the
+landmark-graph LM and the pose-graph Gauss-Newton, against the JAX
+package's, on the same seeded float64 graphs.
 
 Tolerance: rtol=1e-10 (atol 1e-12 for entries that are zero up to
-rounding). The two packages sum scatter-adds and small matrix products
+rounding); the pose-graph solves rtol 1e-9 (atol 1e-10). The two packages sum scatter-adds and small matrix products
 in different orders, and the port's block-tridiagonal path uses cyclic
 reduction where the JAX package runs the sequential sweep; each is a
 few ulps per operation on well-conditioned systems.
@@ -13,15 +14,30 @@ import numpy as np
 import pytest
 import torch
 
+from sparse_gslam_tpu.eval.synthetic_graphs import make_chain_graph
 from sparse_gslam_tpu.ops import solvers as jsol
 from sparse_gslam_tpu.ops.line_geometry import transform_line as j_transform
 from sparse_gslam_tpu.utils import se2 as jse2
-from sparse_gslam_tpu_torch.interop import lm_graph_from_numpy
+from sparse_gslam_tpu_torch.interop import (
+    lm_graph_from_numpy,
+    pose_graph_from_numpy,
+)
 from sparse_gslam_tpu_torch.ops import solvers as tsol
 from sparse_gslam_tpu_torch.ops.line_geometry import transform_line
 
 RTOL = 1e-10
 ATOL = 1e-12
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The suite runs in several worker processes at once; one torch
+    thread per worker keeps them from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 
 def close(port, ref, rtol=RTOL, atol=ATOL):
@@ -267,3 +283,71 @@ def test_optimize_landmark_graph(graph, rtol):
     assert int(dof_t) == int(dof_j)
     # the solve did work: chi2 fell from its start
     assert float(chi2_t) < float(tsol.lm_graph_chi2(tg)[0])
+
+
+# ---------------------------------------------------------------------------
+# pose graph
+# ---------------------------------------------------------------------------
+
+
+def pose_graphs(n_poses, n_closures, pad_to, seed):
+    """(JAX PoseGraphData, the port's) for make_chain_graph's graph,
+    with a share of the closures corrupted so DCS has outliers to
+    down-weight."""
+    g, _ = make_chain_graph(n_poses=n_poses, n_closures=n_closures,
+                            pad_to=pad_to, seed=seed)
+    meas = np.asarray(g.clo_meas).copy()
+    r = np.random.default_rng(seed)
+    bad = r.random(len(meas)) < 0.25
+    meas[bad] += r.normal(0.0, 1.5, (int(bad.sum()), 3))
+    g = g._replace(clo_meas=jnp.asarray(meas))
+    fields = {k: np.asarray(getattr(g, k)) for k in g._fields}
+    return g, pose_graph_from_numpy(fields, "cpu")
+
+
+PG_CASES = {"n60_c8": (60, 8, 64, 0), "n200_c24": (200, 24, 256, 1)}
+
+
+def test_pose_graph_from_numpy_dtypes():
+    _, tg = pose_graphs(*PG_CASES["n60_c8"])
+    assert tg.poses.dtype == torch.float64
+    assert tg.clo_i.dtype == torch.int64 and tg.valid.dtype == torch.bool
+    assert tuple(tg.chain_info.shape) == (64, 3, 3)
+
+
+@pytest.mark.parametrize("phi", [0.5, 1.0, 4.0])
+def test_dcs_weight(phi):
+    chi2 = np.concatenate([[0.0], np.logspace(-3, 4, 40)])
+    close(tsol.dcs_weight(t(chi2), phi), jsol.dcs_weight(chi2, phi))
+
+
+@pytest.mark.parametrize("case", list(PG_CASES))
+def test_closure_chi2(case):
+    g, tg = pose_graphs(*PG_CASES[case])
+    close(tsol.closure_chi2(tg), jsol.closure_chi2(g), rtol=1e-12)
+
+
+@pytest.mark.parametrize("case", list(PG_CASES))
+def test_assemble_posegraph(case):
+    g, tg = pose_graphs(*PG_CASES[case])
+    for port, ref in zip(tsol._assemble_posegraph(tg, 1.0),
+                         jsol._assemble_posegraph(g, 1.0)):
+        close(port, ref)
+
+
+@pytest.mark.parametrize("iterations,init_scale", [(20, 1.0), (12, 8.0)])
+def test_gnc_phi_schedule(iterations, init_scale):
+    close(tsol.gnc_phi_schedule(1.0, iterations, init_scale),
+          jsol.gnc_phi_schedule(1.0, iterations, init_scale), rtol=1e-15)
+
+
+@pytest.mark.parametrize("gnc", [1.0, 8.0], ids=["dcs", "gnc"])
+@pytest.mark.parametrize("case", list(PG_CASES))
+def test_optimize_pose_graph(case, gnc):
+    g, tg = pose_graphs(*PG_CASES[case])
+    ref = jsol.optimize_pose_graph(g, 1.0, 20, gnc_init_scale=gnc)
+    out = tsol.optimize_pose_graph(tg, 1.0, 20, gnc_init_scale=gnc)
+    close(out.poses, ref.poses, rtol=1e-9, atol=1e-10)
+    # padding poses stay where they were
+    n = int(np.asarray(g.valid).sum())
+    close(out.poses[n:], np.asarray(g.poses)[n:], rtol=0, atol=0)
