@@ -1,0 +1,34 @@
+"""Hold one full run's output against the JAX package's CPU reference.
+
+    python scripts/compare_world_run.py WORLD LOG RESULT
+
+WORLD is one of chip_smoke.py's WORLDS (sim-office, sim-killian,
+sim-loops, sim-corridor); LOG is the run's standard output under
+SLAM_LOG_MATCHES=1 (python -m sparse_gslam_tpu_torch.runner
+--dataset-dir <copy of datasets/WORLD> --dataset-name WORLD --eval
+...); RESULT is the .result it wrote. Prints chip_smoke.compare_run's
+readings as one JSON line (the decision lines counted, not listed).
+Needs no GPU.
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402
+
+
+def main() -> None:
+    world, log, result = sys.argv[1:4]
+    with open(log) as fh:
+        cmp = chip_smoke.compare_run(world, fh.read(), result)
+    cmp["decision_lines"] = len(cmp.pop("decisions"))
+    cmp["reference_decision_lines"] = len(cmp.pop("reference_decisions"))
+    print(json.dumps(cmp))
+
+
+if __name__ == "__main__":
+    main()

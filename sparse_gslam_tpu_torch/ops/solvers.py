@@ -10,7 +10,10 @@ landmark blocks, and either a dense Cholesky of the reduced pose system
 or, for long windows, a block-tridiagonal solve of the pose chain with
 a Woodbury correction for the landmarks. The pose graph (chain +
 DCS-robustified closures, submap_loop_closer.cpp:286-288): a dense
-(3N)^2 Jacobi-equilibrated Cholesky per Gauss-Newton iteration.
+(3N)^2 Jacobi-equilibrated Cholesky per Gauss-Newton iteration; its
+keyframe-partitioned counterpart for long graphs is
+parallel/dist_solver.py, which solves its blocks' interiors with
+tridiag_solve_cr batched over the blocks.
 
 Everything runs on the device of the input tensors, in their dtype
 (float64 in the port). Differences from the JAX package:
@@ -18,8 +21,9 @@ Everything runs on the device of the input tensors, in their dtype
     of summation differs from XLA's, so results agree to rounding
     (~1e-15 relative per operation), not bit for bit;
   - the block-tridiagonal chain solve is `tridiag_solve_cr` (cyclic
-    reduction, log2 P batched levels) where the JAX package runs the
-    sequential `tridiag_solve`; both solve the same SPD system;
+    reduction, log2 P batched levels, any leading batch dimensions)
+    where the JAX package runs the sequential `tridiag_solve` (under
+    vmap in its blocked solver); both solve the same SPD system;
   - the early-stopping LM loop is a Python loop with one host sync
     per iteration.
 
@@ -235,42 +239,44 @@ def tridiag_solve_cr(D, O, rhs):
     nested-dissection ordering, so stability matches the LDL sweep for
     SPD input.
 
-    D: (P, 3, 3); O: (P, 3, 3) with O[i] = H[i-1, i] (O[0] ignored);
-    rhs: (P, 3, R). Returns x (P, 3, R).
+    D: (..., P, 3, 3); O: (..., P, 3, 3) with O[..., i] = H[i-1, i]
+    (O[..., 0] ignored); rhs: (..., P, 3, R). Leading dimensions are
+    independent systems (the blocked pose-graph solver's P blocks).
+    Returns x (..., P, 3, R).
     """
-    P = D.shape[0]
+    P = D.shape[-3]
+    batch = D.shape[:-3]
     M = 1
     while M < max(P, 1):
         M *= 2
     dt, dev = D.dtype, D.device
-    eye = torch.eye(3, dtype=dt, device=dev)
+
+    def zeros(n, like):
+        return torch.zeros(like.shape[:-3] + (n,) + like.shape[-2:],
+                           dtype=dt, device=dev)
+
     if M != P:
         pad = M - P
-        D = torch.cat([D, eye.expand(pad, 3, 3)], dim=0)
-        O = torch.cat([O, torch.zeros((pad, 3, 3), dtype=dt, device=dev)])
-        rhs = torch.cat(
-            [rhs, torch.zeros((pad,) + rhs.shape[1:], dtype=dt, device=dev)]
-        )
+        eye = torch.eye(3, dtype=dt, device=dev)
+        D = torch.cat([D, eye.expand(batch + (pad, 3, 3))], dim=-3)
+        O = torch.cat([O, zeros(pad, O)], dim=-3)
+        rhs = torch.cat([rhs, zeros(pad, rhs)], dim=-3)
     E = O.clone()
-    E[0] = 0.0
+    E[..., 0, :, :] = 0.0
     r = rhs
 
     # forward elimination: per level, remove odd-indexed blocks
     stack = []  # per-level (D_o_inv, E_e, E_o, r_o) for back-substitution
     m = M
-    z33 = torch.zeros((1, 3, 3), dtype=dt, device=dev)
     while m > 1:
-        D_e, D_o = D[0::2], D[1::2]
-        E_e, E_o = E[0::2], E[1::2]
-        r_e, r_o = r[0::2], r[1::2]
+        D_e, D_o = D[..., 0::2, :, :], D[..., 1::2, :, :]
+        E_e, E_o = E[..., 0::2, :, :], E[..., 1::2, :, :]
+        r_e, r_o = r[..., 0::2, :, :], r[..., 1::2, :, :]
         Dinv_o = inv3(D_o)
-        Dinv_prev = torch.cat([z33, Dinv_o[:-1]], dim=0)
-        E_o_prev = torch.cat([z33, E_o[:-1]], dim=0)
-        r_o_prev = torch.cat(
-            [torch.zeros((1,) + r.shape[1:], dtype=dt, device=dev),
-             r_o[:-1]],
-            dim=0,
-        )
+        Dinv_prev = torch.cat([zeros(1, Dinv_o), Dinv_o[..., :-1, :, :]],
+                              dim=-3)
+        E_o_prev = torch.cat([zeros(1, E_o), E_o[..., :-1, :, :]], dim=-3)
+        r_o_prev = torch.cat([zeros(1, r_o), r_o[..., :-1, :, :]], dim=-3)
         EeT = E_e.transpose(-1, -2)
         L = EeT @ Dinv_prev  # couples eq 2k to odd 2k-1
         Rr = E_o @ Dinv_o  # couples eq 2k to odd 2k+1
@@ -284,22 +290,20 @@ def tridiag_solve_cr(D, O, rhs):
         D, E, r = D_new, E_new, r_new
         m //= 2
 
-    x = inv3(D[0])[None] @ r  # (1, 3, R)
+    x = inv3(D) @ r  # (..., 1, 3, R)
 
     # back-substitution: recover the odd blocks of each level
     for Dinv_o, E_e, E_o, r_o in reversed(stack):
-        half = Dinv_o.shape[0]
-        x_e = x  # (half, 3, R)
-        E_e_next = torch.cat([E_e[1:], z33], dim=0)
-        x_e_next = torch.cat(
-            [x_e[1:], torch.zeros((1,) + x.shape[1:], dtype=dt, device=dev)],
-            dim=0,
-        )
+        half = Dinv_o.shape[-3]
+        x_e = x  # (..., half, 3, R)
+        E_e_next = torch.cat([E_e[..., 1:, :, :], zeros(1, E_e)], dim=-3)
+        x_e_next = torch.cat([x_e[..., 1:, :, :], zeros(1, x_e)], dim=-3)
         x_o = Dinv_o @ (
             r_o - E_o.transpose(-1, -2) @ x_e - E_e_next @ x_e_next
         )
-        x = torch.stack([x_e, x_o], dim=1).reshape(2 * half, *x.shape[1:])
-    return x[:P]
+        x = torch.stack([x_e, x_o], dim=-3).reshape(
+            batch + (2 * half,) + x.shape[-2:])
+    return x[..., :P, :, :]
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,7 @@ refinement, which the port does not round as XLA does (up to ~2e-5 m
 apart on the same inputs); the solved vertices differ by ~1.5e-5 at
 N_FRAMES, and 1e-4 m/rad holds them.
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -204,8 +205,8 @@ def test_ridge_drift_gate_matches_jax(cov, refined, max_drift, reject):
 
 def test_unported_options_are_refused():
     fe = Frontend(SlamConfig(), device="cpu")
-    for kw in (dict(pg_solver="blocked"), dict(final_refine_rounds=1),
-               dict(final_joint=True), dict(chain_info_mode="marginal")):
+    for kw in (dict(final_refine_rounds=1), dict(final_joint=True),
+               dict(chain_info_mode="marginal")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SubmapLoopCloser(SlamConfig(**kw), fe, device="cpu")
 
@@ -261,3 +262,36 @@ def test_office_result_uses_pose_graph(office_runs, tmp_path):
     d[:, 2] = se2.wrap_angle(d[:, 2])
     # 6-decimal file format on top of POSE_ATOL
     assert np.abs(d).max() <= POSE_ATOL + 2e-6
+
+
+def test_office_blocked_route_matches_jax(office_runs, monkeypatch):
+    """With dist_solver_min_poses lowered to 256, copies of both
+    backends after N_FRAMES take the keyframe-partioned solver (the
+    dense one is made to raise in both packages) through a final-style
+    match at min score 0.5, the chi2 prune and a solve: the same
+    closures, activity and consistency suppression, and pose-graph
+    vertices within POSE_ATOL."""
+    import copy
+
+    import sparse_gslam_tpu.models.backend as jbackend
+    import sparse_gslam_tpu_torch.ops.solvers as tsolvers
+
+    def refuse(*a, **k):
+        raise AssertionError("dense pose-graph solver called")
+
+    monkeypatch.setattr(jbackend, "_get_pg_solver", refuse)
+    monkeypatch.setattr(tsolvers, "optimize_pose_graph", refuse)
+    backends = [copy.deepcopy(s.backend) for s in office_runs]
+    for b in backends:
+        b.config = dataclasses.replace(b.config, dist_solver_min_poses=256)
+        assert b._build_pg_data().poses.shape[0] == 256
+        b.loop_closure_min_score = 0.5
+        b.match()
+        b.prune_false_closures()
+        b.optimize()
+    jb, tb = backends
+    assert closure_keys(tb) == closure_keys(jb)
+    assert ([c.suppressed for c in tb.closures]
+            == [c.suppressed for c in jb.closures])
+    np.testing.assert_allclose(np.stack(tb.pg_poses), np.stack(jb.pg_poses),
+                               rtol=0, atol=POSE_ATOL)

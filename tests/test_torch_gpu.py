@@ -9,7 +9,10 @@ Tolerances: grids and cell indices bit-equal (the insertion kernel is
 bit-exact with its plain twin; the rotation tables come from the host
 on both devices); scores 1e-5 (cuFFT against pocketfft/MKL); the
 refined pose 1e-5 m/rad (float32 sums in another order); the float64
-pose graph rtol 1e-9 (atomics sum in a run-dependent order).
+pose graph rtol 1e-9 (atomics sum in a run-dependent order); the
+blocked pose-graph solver 1e-8 m/rad after 40 iterations in float64
+(converged: in-flight iterates of a long chain spread rounding
+differences), 1e-5 in float32 after four float64 refinement rounds.
 """
 import numpy as np
 import pytest
@@ -156,3 +159,30 @@ def test_backend_precompute_on_cuda_launches_the_kernel():
     a, b = closers["cuda"].submaps[0], closers["cpu"].submaps[0]
     for name in ("probs", "high_res", "score_grid", "pooled_grid"):
         assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_blocked_pose_graph_on_cuda_matches_cpu(dtype):
+    """The keyframe-partitioned solver (4 blocks of 128) on the card
+    against the same solve on the CPU; float32 with float64
+    refinement as optimize_partitioned offers it."""
+    need_card()
+    from sparse_gslam_tpu_torch.eval.synthetic_graphs import (
+        make_chain_graph,
+        to_pose_graph,
+    )
+    from sparse_gslam_tpu_torch.parallel import dist_solver
+
+    fields, _ = make_chain_graph(n_poses=500, n_closures=16, pad_to=512,
+                                 drift=0.005, seed=4)
+    rounds = 0 if dtype == torch.float64 else 4
+    out = {}
+    for dev in ("cpu", "cuda"):
+        g = to_pose_graph(fields, dev, dtype)
+        out[dev] = dist_solver.optimize_partitioned(
+            g, 1.0, 4, iterations=40, refine_rounds=rounds).poses
+        assert out[dev].device.type == dev and out[dev].dtype == dtype
+    np.testing.assert_allclose(out["cuda"].cpu().double().numpy(),
+                               out["cpu"].double().numpy(), rtol=0,
+                               atol=1e-8 if rounds == 0 else 1e-5)
