@@ -8,16 +8,15 @@ hash of its source and flags.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 
 import numpy as np
 import torch
 
+from ..ops.grid_cuda import build_library
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "posegraph_solver.cpp")
-BUILD_DIR = os.path.join(_PKG, "_build")
 GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
 
 _lib = None
@@ -25,17 +24,8 @@ _lib = None
 
 def build() -> str:
     """Compile the library if its cached build is missing; its path."""
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    with open(SOURCE, "rb") as fh:
-        h.update(fh.read())
-    path = os.path.join(BUILD_DIR, f"libposegraph_{h.hexdigest()[:16]}.so")
-    if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, SOURCE], check=True,
-                       capture_output=True)
-        os.replace(tmp, path)
-    return path
+    return build_library(SOURCE, GXX_FLAGS, "posegraph",
+                         compiler="g++")["path"]
 
 
 def _host(a, dtype):

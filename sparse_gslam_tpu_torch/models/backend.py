@@ -24,7 +24,7 @@ Port of sparse_gslam_tpu/models/backend.py, its CPU branch:
 Grids, the matcher, the refinement and the pose-graph solve run on
 `device`; what the JAX package computes in numpy stays numpy on the
 host. Not ported (ROADMAP.md): the accelerator branch (fused matcher,
-device pin batches), refine_map, joint_solve, the sharded (multi-device)
+device pin batches), joint_solve, the sharded (multi-device)
 pose-graph solver, the marginal chain information and the ground-truth
 diagnostics. A configuration that asks for one of them is
 refused with NotImplementedError.
@@ -54,8 +54,6 @@ def _refuse_unported(cfg: SlamConfig) -> None:
     """Raise for options whose code is not ported (never take another
     path silently)."""
     asks = []
-    if cfg.final_refine_rounds > 0:
-        asks.append("final_refine_rounds > 0 (refine_map)")
     if cfg.final_joint:
         asks.append("final_joint (joint_solve)")
     if cfg.chain_info_mode == "marginal":
@@ -705,18 +703,21 @@ class SubmapLoopCloser:
 
     # --------------------------------------------------------------------
     def _refine_on_submap(self, sm: Submap, query: np.ndarray, seed,
-                          max_correction: float, min_overlap: float):
+                          max_correction: float, min_overlap: float,
+                          high_res: bool = False):
         """Two-stage GN refinement of query points against a submap's
         grids, seeded at the current pose estimate: first on the
         dilated score grid (wide convergence basin), then on the raw
-        probability grid (unbiased); Censi covariance from the raw-grid
-        GN Hessian.
+        probability grid (unbiased), or with high_res on the 0.05 m
+        high-res grid (refine_map's polish); Censi covariance from the
+        second stage's GN Hessian.
 
         Returns (refined (3,), cov (3,3), overlap) on success or
         (None, reason, None) where reason is a stats-counter key."""
+        fine = ((sm.high_res, sm.high_origin, 0.05) if high_res
+                else (sm.probs, sm.origin, float(sm.resolution)))
         refined, cov, probs = matching.refine_pose_cov_two_stage(
-            sm.score_grid, sm.origin, float(sm.resolution),
-            sm.probs, sm.origin, float(sm.resolution),
+            sm.score_grid, sm.origin, float(sm.resolution), *fine,
             *_padded_query(query, self.device),
             torch.tensor(np.asarray(seed, np.float32), device=self.device),
         )
@@ -920,6 +921,84 @@ class SubmapLoopCloser:
                     flush=True,
                 )
         return made
+
+    # --------------------------------------------------------------------
+    def refine_map(self, rounds: int = 1, iterations: int = 40,
+                   gnc_scale: float = 1.0) -> None:
+        """Iterative map refinement (final_cleanup with
+        config.final_refine_rounds, after the global re-match sweep):
+        rebuild every submap's grids from the current optimized poses,
+        re-measure every active loop/local edge with a seeded two-stage
+        refinement (the dilated grid, then the 0.05 m high-res grid)
+        and the exhaustive window's ambiguity covariance against the
+        rebuilt grids, and re-solve. Match-time stitching distortion of
+        the query multicloud and the target grid dominates a closure's
+        measurement error; after a global solve the poses are better,
+        so re-building and re-measuring shrinks that term."""
+        cfg = self.config
+        kfs = self.frontend.keyframes
+        if not self.submaps or len(self.pg_poses) < 2:
+            return
+        _t0 = _time.perf_counter()
+        for _ in range(max(0, rounds)):
+            map_pose = self._map_transforms()
+            est_arr = np.stack([map_pose(k) for k in range(len(kfs))])
+            self.rebuild_grids(est_arr)
+            by_anchor = {sm.anchor_idx: sm for sm in self.submaps}
+            n = len(self.pg_poses)
+            for c in self.closures:
+                if not c.active or c.kind == "kf":
+                    continue
+                if c.i not in by_anchor or c.i >= n or c.j >= n:
+                    continue
+                sm = by_anchor[c.i]
+                # a short query window around the j endpoint (a query
+                # multicloud's mid, or another submap's anchor after
+                # rematch_all)
+                query = construct_multicloud(
+                    [k.data for k in kfs], est_arr, max(0, c.j - 3), c.j,
+                    min(len(kfs), c.j + 4), returns_only=True,
+                )
+                if len(query) < 12:
+                    continue
+                if len(query) > 512:
+                    query = query[
+                        np.linspace(0, len(query) - 1, 512).astype(int)
+                    ]
+                # seeded at the current estimate, within ~0.1 m of the
+                # truth after the solve: no basin to escape, and no
+                # window argmax, which would reproduce the estimate
+                seed = se2.relative(est_arr[c.i], est_arr[c.j])
+                refined, censi, _ = self._refine_on_submap(
+                    sm, query, seed, 0.4, 0.0, high_res=True
+                )
+                if refined is None:
+                    continue
+                # ambiguity (ridge) covariance from the exhaustive
+                # window around the refined pose
+                res = float(sm.resolution)
+                spec = matching.search_spec(
+                    cfg.kf_search_window, cfg.kf_angular_window,
+                    float(np.linalg.norm(query, axis=1).max()), res,
+                )
+                ks = np.arange(-spec.n_angular, spec.n_angular + 1)
+                thetas = refined[2] + ks * spec.angular_step
+                scores = matching.correlate_window_host(
+                    self._score_grid_host(sm),
+                    _host(sm.origin)[0] - refined[:2], res, query,
+                    thetas, spec.n_linear,
+                )
+                wcov = matching.score_volume_cov(
+                    scores, thetas, refined[2], res, spec.n_linear
+                )
+                cov = self._cov_hybrid(
+                    censi, wcov, spec.angular_step,
+                    cfg.closure_sigma_xy, cfg.closure_sigma_th,
+                )
+                c.meas = refined
+                c.info = np.linalg.inv(cov)
+            self.optimize(iterations=iterations, gnc_scale=gnc_scale)
+        self.prof["refine_map"] += _time.perf_counter() - _t0
 
     # --------------------------------------------------------------------
     def rebuild_grids(self, est_arr: np.ndarray) -> None:

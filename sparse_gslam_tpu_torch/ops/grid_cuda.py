@@ -63,35 +63,43 @@ def source_files(path: str = SOURCE) -> list:
     return files
 
 
-def build() -> dict:
-    """Compile the kernel library if its cached build is missing.
+def build_library(source: str, flags, stem: str, compiler: str = None
+                  ) -> dict:
+    """Compile `source` with `compiler` (nvcc unless named) and `flags`
+    into a shared library in BUILD_DIR unless a build of the same
+    source, included headers, compiler and flags is there already.
 
     Returns {"path", "seconds" (0.0 when cached), "ptxas" (the
-    -Xptxas -v register/shared-memory report, "" when cached)}."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in source_files():
+    compiler's output, with nvcc's -Xptxas -v the register/shared-memory
+    report; "" when cached)}."""
+    h = hashlib.sha256(" ".join((compiler or "nvcc", *flags)).encode())
+    for f in source_files(source):
         with open(f, "rb") as fh:
             h.update(fh.read())
-    tag = h.hexdigest()
-    path = os.path.join(BUILD_DIR, f"libinsert_rays_{tag[:16]}.so")
+    path = os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
     if os.path.exists(path):
         return {"path": path, "seconds": 0.0, "ptxas": ""}
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
+    cc = compiler or _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-        capture_output=True, text=True,
-    )
+    proc = subprocess.run([cc, *flags, "-o", tmp, source],
+                          capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
-            f"{proc.stdout}{proc.stderr}"
+            f"{os.path.basename(cc)} failed ({proc.returncode}) on "
+            f"{source}:\n{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, path)  # atomic: concurrent builders race harmlessly
     return {"path": path, "seconds": seconds,
             "ptxas": (proc.stdout + proc.stderr).strip()}
+
+
+def build() -> dict:
+    """Compile the insertion kernel's library if its cached build is
+    missing (build_library)."""
+    return build_library(SOURCE, NVCC_FLAGS, "insert_rays")
 
 
 @functools.lru_cache(maxsize=None)

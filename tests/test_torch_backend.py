@@ -10,10 +10,12 @@ backend.py) against the JAX package's, on the CPU.
    same (i, j, kind, active) closure list, and the pose-graph vertices
    within POSE_ATOL.
 
-POSE_ATOL: closure measurements come from float32 Gauss-Newton
-refinement, which the port does not round as XLA does (up to ~2e-5 m
-apart on the same inputs); the solved vertices differ by ~1.5e-5 at
-N_FRAMES, and 1e-4 m/rad holds them.
+3. refine_map on copies of both backends after those frames.
+
+POSE_ATOL: the closure measurements are bit-equal (the port's float32
+refinement rounds as XLA's CPU program); the solved vertices differ by
+the float64 solves' rounding (5.7e-13 m at N_FRAMES), and 1e-9 m/rad
+holds them.
 """
 import dataclasses
 import os
@@ -43,7 +45,7 @@ from sparse_gslam_tpu_torch.utils.config import (
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OFFICE = os.path.join(ROOT, "datasets", "sim-office")
 N_FRAMES = 430
-POSE_ATOL = 1e-4
+POSE_ATOL = 1e-9
 
 PORT = dict(cfg=SlamConfig, fe=Frontend, kf=Keyframe, rd=RangeData2D)
 JAX = dict(cfg=JSlamConfig, fe=JFrontend, kf=JKeyframe, rd=JRangeData2D)
@@ -205,8 +207,7 @@ def test_ridge_drift_gate_matches_jax(cov, refined, max_drift, reject):
 
 def test_unported_options_are_refused():
     fe = Frontend(SlamConfig(), device="cpu")
-    for kw in (dict(final_refine_rounds=1), dict(final_joint=True),
-               dict(chain_info_mode="marginal")):
+    for kw in (dict(final_joint=True), dict(chain_info_mode="marginal")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SubmapLoopCloser(SlamConfig(**kw), fe, device="cpu")
 
@@ -293,5 +294,32 @@ def test_office_blocked_route_matches_jax(office_runs, monkeypatch):
     assert closure_keys(tb) == closure_keys(jb)
     assert ([c.suppressed for c in tb.closures]
             == [c.suppressed for c in jb.closures])
+    np.testing.assert_allclose(np.stack(tb.pg_poses), np.stack(jb.pg_poses),
+                               rtol=0, atol=POSE_ATOL)
+
+
+def test_office_refine_map_matches_jax(office_runs):
+    """refine_map (final_refine_rounds: one round) on copies of both
+    backends after N_FRAMES: the grids rebuilt at the optimized poses
+    bit for bit, the same closures re-measured (the seeded two-stage
+    refinement on the 0.05 m grid rounds as XLA does, so each
+    measurement agrees to the rebuilt grids' inputs, whose poses come
+    from the float64 solves), and the re-solved pose graph within
+    POSE_ATOL."""
+    import copy
+
+    backends = [copy.deepcopy(s.backend) for s in office_runs]
+    before = [[np.array(c.meas) for c in b.closures] for b in backends]
+    for b in backends:
+        b.refine_map(rounds=1, iterations=20)
+    jb, tb = backends
+    assert_same_submaps(tb, jb)
+    assert closure_keys(tb) == closure_keys(jb)
+    moved = 0
+    for a, b, m0 in zip(jb.closures, tb.closures, before[0]):
+        np.testing.assert_allclose(b.meas, a.meas, rtol=0, atol=1e-9)
+        np.testing.assert_allclose(b.info, a.info, rtol=1e-9, atol=0)
+        moved += not np.array_equal(np.asarray(a.meas), m0)
+    assert moved > 0  # refine_map re-measured closures
     np.testing.assert_allclose(np.stack(tb.pg_poses), np.stack(jb.pg_poses),
                                rtol=0, atol=POSE_ATOL)

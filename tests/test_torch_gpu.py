@@ -8,7 +8,7 @@ runs on a machine that has only the port's dependencies:
 Tolerances: grids and cell indices bit-equal (the insertion kernel is
 bit-exact with its plain twin; the rotation tables come from the host
 on both devices); scores 1e-5 (cuFFT against pocketfft/MKL); the
-refined pose 1e-5 m/rad (float32 sums in another order); the float64
+refinement bit-equal (the kernel rounds as its plain version); the float64
 pose graph rtol 1e-9 (atomics sum in a run-dependent order); the
 blocked pose-graph solver 1e-8 m/rad after 40 iterations in float64
 (converged: in-flight iterates of a long chain spread rounding
@@ -86,8 +86,73 @@ def test_pruned_matcher_and_refinement_on_cuda_match_cpu():
             torch.from_numpy(pts).to(dev),
             torch.from_numpy(np.arange(128) < len(query)).to(dev),
             torch.from_numpy(init).to(dev))
-    np.testing.assert_allclose(res["cuda"][0].cpu().numpy(),
-                               res["cpu"][0].numpy(), rtol=0, atol=1e-5)
+    for a, b in zip(res["cuda"], res["cpu"]):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+
+
+def refine_world(G, res):
+    """A 7 x 6 m room as a (G, G) grid centred on the origin: walls 0.9
+    three cells wide, free space 0.2 with seeded noise, unknown outside;
+    and a scan of its walls from (0.3, 0.4, 0.2), padded to 512."""
+    rng = np.random.default_rng(G)
+    origin = np.full(2, -G * res / 2, np.float32)
+    c = origin[0] + (np.arange(G) + 0.5) * res
+    X, Y = np.meshgrid(c, c, indexing="ij")
+    inside = (X > -3) & (X < 4) & (Y > -1) & (Y < 5)
+    g = np.where(inside, 0.2 + rng.uniform(-0.05, 0.05, X.shape), 0.0)
+    band = 1.5 * res
+    near = (X > -3 - band) & (X < 4 + band) & (Y > -1 - band) & (Y < 5 + band)
+    wall = near & ((np.abs(X - 4) < band) | (np.abs(X + 3) < band)
+                   | (np.abs(Y + 1) < band) | (np.abs(Y - 5) < band))
+    g = np.where(wall, 0.9, g).astype(np.float32)
+    a = np.linspace(-np.pi, np.pi, 400, endpoint=False)
+    gt = np.array([0.3, 0.4, 0.2])
+    walls = [((4.0, 0.0), (0.0, 1.0)), ((-3.0, 0.0), (0.0, 1.0)),
+             ((0.0, -1.0), (1.0, 0.0)), ((0.0, 5.0), (1.0, 0.0))]
+    best = np.full(a.shape, np.inf)
+    for (px, py), (dx, dy) in walls:
+        cx, cy = np.cos(a + gt[2]), np.sin(a + gt[2])
+        den = cx * dy - cy * dx
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = ((px - gt[0]) * dy - (py - gt[1]) * dx) / den
+        best = np.minimum(best, np.where((np.abs(den) > 1e-9) & (t > 0), t,
+                                         np.inf))
+    pts = np.zeros((512, 2), np.float32)
+    pts[:400] = np.stack([best * np.cos(a), best * np.sin(a)], 1)
+    return g, origin, pts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [256, 512])
+def test_refine_kernel_matches_plain_on_cuda(n):
+    """The refinement kernel (one launch per call) against its plain
+    version on the same CUDA tensors, torch.equal: one stage at 0.1 m,
+    two stages (0.1 m dilated, then 0.05 m) and the pose alone."""
+    need_card()
+    from sparse_gslam_tpu_torch.ops import refine_cuda
+
+    dev = torch.device("cuda")
+    g1, o1, pts = refine_world(320, 0.1)
+    g2, o2, _ = refine_world(576, 0.05)
+    coarse = precompute_pyramid(torch.from_numpy(g1).to(dev), 1)[0]
+    s1 = (torch.from_numpy(g1).to(dev), torch.from_numpy(o1).to(dev), 0.1)
+    s2 = (torch.from_numpy(g2).to(dev), torch.from_numpy(o2).to(dev), 0.05)
+    q = (torch.from_numpy(pts[:n]).to(dev),
+         (torch.arange(n) < min(n, 400) - 20).to(dev),
+         torch.tensor([0.33, 0.36, 0.21], dtype=torch.float32, device=dev))
+    s0 = (coarse.contiguous(), s1[1], 0.1)
+    before = refine_cuda.refine_cuda.launches
+    got = [matching.refine_pose_cov(*s1, *q),
+           matching.refine_pose_cov_two_stage(*s0, *s2, *q),
+           (matching.refine_pose(*s1, *q),)]
+    assert refine_cuda.refine_cuda.launches == before + 3
+    ref = [matching.refine_plain([s1], *q),
+           matching.refine_plain([s0, s2], *q),
+           (matching.refine_plain([s1], *q, want_cov=False),)]
+    for g, r in zip(got, ref):
+        for a, b in zip(g, r):
+            assert a.is_cuda and b.is_cuda
+            assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -12,11 +12,9 @@ Tolerances, and why:
     K/s - u u^T/s^2 cancel heavily, so the port takes them in XLA's CPU
     order and rounding; it agrees bit for bit but for the last bit of
     the rotation entry in some cases;
-  - refinement: pose atol 1e-5 (m, rad), covariance 1e-3 of its
-    largest entry, per-point probabilities at the refined pose atol 1e-4
-    (a grid slope of up to ~10 per metre times the pose difference).
-    Ten float32 Gauss-Newton steps whose interpolation XLA contracts
-    into fused multiply-adds that the port does not copy.
+  - refinement: pose, covariance and per-point probabilities bit-equal
+    (the port computes XLA's CPU program's arithmetic, ops/refine_exact
+    .py; tests/test_torch_refine_exact.py has the wider cases).
 """
 import jax
 import jax.numpy as jnp
@@ -259,43 +257,30 @@ def _refine_case(room, gt, off):
     ((0.6, -0.4, 0.15), (-0.05, 0.04, -0.01)),
 ])
 def test_refinement_matches_jax(room, gt, off):
+    """The port's refinement rounds as the JAX package's CPU program:
+    pose, covariance and probabilities bit for bit."""
     pts, valid, init = _refine_case(room, gt, off)
     probs, origin = room["probs"], room["origin"]
     jargs = (jnp.asarray(pts), jnp.asarray(valid), jnp.asarray(init))
     targs = (T(pts), T(valid), T(init))
     p_ref = np.asarray(jm.refine_pose(probs, origin, 0.1, *jargs))
     p_got = tm.refine_pose(T(probs), T(origin), 0.1, *targs).numpy()
-    np.testing.assert_allclose(p_got, p_ref, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(p_got, p_ref)
 
     ref = [np.asarray(a) for a in jm.refine_pose_cov(
         probs, origin, 0.1, *jargs)]
     got = [a.numpy() for a in tm.refine_pose_cov(
         T(probs), T(origin), 0.1, *targs)]
-    np.testing.assert_allclose(got[0], ref[0], rtol=0, atol=1e-5)
-    np.testing.assert_allclose(got[1], ref[1], rtol=0,
-                               atol=1e-3 * np.abs(ref[1]).max())
-    np.testing.assert_allclose(got[2], ref[2], rtol=0, atol=1e-4)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
 
     ref = [np.asarray(a) for a in jm.refine_pose_cov_two_stage(
         room["pyr"][0], origin, 0.1, probs, origin, 0.1, *jargs)]
     got = [a.numpy() for a in tm.refine_pose_cov_two_stage(
         T(room["pyr"][0]), T(origin), 0.1, T(probs), T(origin), 0.1,
         *targs)]
-    np.testing.assert_allclose(got[0], ref[0], rtol=0, atol=1e-5)
-    np.testing.assert_allclose(got[1], ref[1], rtol=0,
-                               atol=1e-3 * np.abs(ref[1]).max())
-    np.testing.assert_allclose(got[2], ref[2], rtol=0, atol=1e-4)
-
-
-def test_interp_grid_matches_jax(room):
-    rng = np.random.default_rng(4)
-    pts = rng.uniform(-7, 7, (300, 2)).astype(np.float32)
-    ref = np.asarray(jm.interp_grid(jnp.asarray(room["probs"]),
-                                    jnp.asarray(room["origin"]), 0.1,
-                                    jnp.asarray(pts)))
-    got = tm.interp_grid(T(room["probs"]), T(room["origin"]), 0.1,
-                         T(pts)).numpy()
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
 
 
 @pytest.mark.parametrize("stride", [None, 8, 16, 32])

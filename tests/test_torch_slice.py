@@ -3,7 +3,8 @@ sim-office through both frontend-only SlamSystems on the CPU (float64),
 the global map through both render_maps, and the port's runner, with
 and without the backend, in a process of its own that never imports
 jax (nor does importing the blocked pose-graph solver, its partition,
-the synthetic graphs or the native oracle there). (The backend-on systems are compared in test_torch_backend.py.)
+the synthetic graphs, the native oracle or the refinement kernel's
+wrapper there). (The backend-on systems are compared in test_torch_backend.py.)
 
 Tolerance for keyframe estimates: atol=1e-8. The two LM solvers sum in
 different orders (and the port's long-window path uses cyclic
@@ -105,6 +106,7 @@ def test_runner_subprocess_imports_no_jax(tmp_path, case):
         "import sparse_gslam_tpu_torch.parallel.dist_solver\n"
         "import sparse_gslam_tpu_torch.eval.synthetic_graphs\n"
         "import sparse_gslam_tpu_torch.io.native\n"
+        "import sparse_gslam_tpu_torch.ops.refine_cuda\n"
         f"runner.main(['--dataset-dir', {str(data)!r}, '--dataset-name', "
         f"'sim-office', '--device', 'cpu', *{flags!r}, '--max-frames', "
         f"'{frames}', '--eval', '--map-png', {str(png)!r}])\n"
