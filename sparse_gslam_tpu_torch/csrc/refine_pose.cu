@@ -7,23 +7,34 @@
 // sparse_gslam_tpu/ops/matching.py:545-747, which the port ran as ~100
 // eager torch launches per Gauss-Newton iteration.
 //
-// Design: one block per refinement problem, one thread per padded query
-// point (N = 256 or 512). Each thread computes its residual and its
-// three Jacobian entries (16 bicubic taps read from the float32 grid in
-// device memory) into shared memory; the reductions then run in exactly
-// the order of XLA's CPU code: one thread per entry of J^T J walking
-// the N + 3 rows as one FMA chain, 24 threads for the eight lanes of
-// the J^T r gemv, one thread per 32-element window of the sum of
-// squares. Thread 0 runs the 3x3 sgetrf/strsm solve, the accept test
-// and, at the end, the ssyevd of the covariance. All of it is the block
-// program in refine_pose_exact.cuh, which the host build runs as well.
-// Built with --fmad=false: nvcc contracts nothing, and every FMA of
-// XLA's program is an explicit fmaf in the header.
+// Design: one block per refinement problem, a fixed block of T = 512
+// threads (rpx::THREADS) whatever the padded point count (N = 256, 512,
+// 1024, 2048 or 4096, the sizes the callers pad to). Thread tid owns
+// points tid, tid + T, ...: reads of points and mask are coalesced. Each
+// GN step evaluates the rows and Jacobian once, at the trial pose (16
+// bicubic taps per point from the float32 grid in device memory), into
+// dynamic shared memory (J's three columns and r, 16 (N + 4) bytes,
+// 65.6 KB at N = 4096); the reductions then run in exactly the order of
+// XLA's CPU code: one thread per J^T J entry (six, mirrored) walking the
+// N + 3 rows as one FMA chain, one per entry of the J^T r gemv (its
+// eight lanes and remainder), the other threads the sum of squares'
+// 32-element windows; all read the rows four floats at a time. Thread 0 runs the accept test, the 3x3
+// sgetrf/strsm solve with the next trial's sinf/cosf and, at the end,
+// the ssyevd of the covariance. A stage ends when a trial is rejected or
+// kept unchanged, where every later JAX step repeats itself (the header
+// says why). All of it is the block program in refine_pose_exact.cuh,
+// which the host build runs as well. Built with --fmad=false: nvcc
+// contracts nothing, and every FMA of XLA's program is an explicit fmaf
+// in the header.
 //
-// Bound: latency. Per call ~22 evaluations of N points x 16 taps (a few
-// MB of L2 reads), but 10 sequential iterations per stage, each a chain
-// of N + 3 dependent FMAs through shared memory and a serial 3x3 solve;
-// the card is idle but for one block.
+// Bound: latency. XLA's order makes each J^T J entry a chain of N + 3
+// dependent FMAs per GN step (4 cycles each), and the solve a serial
+// scalar 3x3 factorisation; the bytes (a few thousand grid cells) and
+// the operations are microseconds below that. The design keeps the chain
+// fed (128-bit loads, 32 terms ahead of its FMAs: scalar loads, two per
+// term, cost 11-17 cycles a term on an H100), evaluates once per step
+// instead of twice, and stops at the first step that repeats; one block
+// per problem leaves the card idle but for one SM.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,14 +56,15 @@ struct DeviceExec {
   }
 };
 
-__global__ void __launch_bounds__(rpx::NMAX)
+__global__ void __launch_bounds__(rpx::THREADS)
     refine_pose_kernel(const float* g0, int size0, const float* origin0,
                        float res0, const float* g1, int size1,
                        const float* origin1, float res1, int stages,
                        const float* pts, const uint8_t* valid,
                        const float* init, const float* y0, int n,
                        int iterations, int want_cov, float* pose,
-                       float* cov, float* probs) {
+                       float* cov, float* probs, int* iters) {
+  extern __shared__ float4 rows4[];  // 16-byte aligned: rpx::load4
   __shared__ rpx::Shared sh;
   const int b = blockIdx.x;
   rpx::Problem P;
@@ -69,8 +81,9 @@ __global__ void __launch_bounds__(rpx::NMAX)
   P.pose_out = pose + 3 * b;
   P.cov_out = cov + 9 * b;
   P.probs_out = probs + (size_t)b * n;
+  P.iters_out = iters + 2 * b;
   DeviceExec ex;
-  rpx::refine_block(ex, P, sh);
+  rpx::refine_block(ex, P, sh, reinterpret_cast<float*>(rows4));
 }
 
 __global__ void sincosf_kernel(uint32_t start, uint32_t step, uint64_t n,
@@ -102,19 +115,25 @@ extern "C" int rpx_sincosf_launch(uint32_t start, uint32_t end,
   return (int)cudaGetLastError();
 }
 
-// One launch of `batch` blocks on `stream`. Returns 0 or a cudaError_t
-// (cudaErrorInvalidValue for arguments the kernel does not take).
+// One launch of `batch` blocks of rpx::THREADS threads on `stream`; iters
+// receives the GN steps each problem's stages ran ((batch, 2) ints).
+// Returns 0 or a cudaError_t (cudaErrorInvalidValue for arguments the
+// kernel does not take).
 extern "C" int refine_pose_launch(
     const float* g0, int size0, const float* origin0, float res0,
     const float* g1, int size1, const float* origin1, float res1,
     int stages, const float* pts, const uint8_t* valid, const float* init,
     const float* y0, int batch, int n, int iterations, int want_cov,
-    float* pose, float* cov, float* probs, void* stream) {
+    float* pose, float* cov, float* probs, int* iters, void* stream) {
   if (!rpx::takes_points(n) || batch < 1 ||
       (stages != 1 && stages != 2) || iterations < 0)
     return (int)cudaErrorInvalidValue;
-  refine_pose_kernel<<<batch, n, 0, (cudaStream_t)stream>>>(
+  const int smem = rpx::rows_bytes(n);
+  const cudaError_t err = cudaFuncSetAttribute(
+      refine_pose_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  refine_pose_kernel<<<batch, rpx::THREADS, smem, (cudaStream_t)stream>>>(
       g0, size0, origin0, res0, g1, size1, origin1, res1, stages, pts,
-      valid, init, y0, n, iterations, want_cov, pose, cov, probs);
+      valid, init, y0, n, iterations, want_cov, pose, cov, probs, iters);
   return (int)cudaGetLastError();
 }

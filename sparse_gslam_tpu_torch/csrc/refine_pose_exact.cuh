@@ -20,18 +20,30 @@
 
 #if defined(__CUDACC__)
 #define RPX_HD __host__ __device__ __forceinline__
+#define RPX_UNROLL _Pragma("unroll")
 #else
 #define RPX_HD inline
+#define RPX_UNROLL
 #endif
 
 namespace rpx {
 
-constexpr int NMAX = 512;       // padded points the kernel takes
-// The block program hands fixed thread ranges their reductions (the
-// J^T r lanes from thread 32, its tails from 64, the sum-of-squares
-// windows from 96), so it takes exactly the point counts the callers
-// pad to: 256 and 512.
-RPX_HD bool takes_points(int n) { return n == 256 || n == NMAX; }
+// padded points a refinement takes: the sizes the callers pad to
+// (256 * 2^k), up to refine_exact.MAX_POINTS
+constexpr int NMAX = 4096;
+RPX_HD bool takes_points(int n) {
+  return n == 256 || n == 512 || n == 1024 || n == 2048 || n == NMAX;
+}
+// threads of the block, whatever N is (scripts/refine_ablation.py timed
+// 128, 256 and 512; PERF.md); the reductions' roles need four warps
+// (reduce_rows)
+constexpr int THREADS = 512;
+static_assert(THREADS >= 128 && THREADS % 32 == 0, "reduce_rows' roles");
+// the rows of the GN system in shared memory: J's three columns and r,
+// K = N + 3 floats each, every column from a multiple of four floats
+// (16 bytes: the reductions load four at a time)
+RPX_HD int column_stride(int n) { return (n + 3 + 3) / 4 * 4; }
+RPX_HD int rows_bytes(int n) { return 4 * column_stride(n) * (int)sizeof(float); }
 constexpr float PMIN = 0.1f;    // ops/grid.py PMIN: unknown cells
 
 RPX_HD float fma32(float a, float b, float c) { return fmaf(a, b, c); }
@@ -157,18 +169,23 @@ struct GridRef {
 };
 
 // where(grid > 0, grid, PMIN)
-RPX_HD float grid_at(const GridRef& G, int64_t i, int64_t j) {
+RPX_HD float grid_at(const GridRef& G, int i, int j) {
   const float v = G.g[i * G.size + j];
   return v > 0.0f ? v : PMIN;
 }
 
-RPX_HD int64_t clamp_tap(int64_t v, int size) {
+RPX_HD int clamp_tap(int v, int size) {
   return v < 0 ? 0 : (v > size - 1 ? size - 1 : v);
 }
 
-// float -> int32 as x86's cvttss2si: out-of-range and NaN give INT_MIN
-RPX_HD int64_t to_i32(float f) {
-  return fabsf(f) < 2147483648.0f ? (int64_t)f : -2147483648LL;
+// The first of a point's four taps along one axis, floor(t0) - 1 with
+// t0's floor fl taken to int32 as x86's cvttss2si does (out of range
+// and NaN give INT_MIN), then held to [-3, size - 1]: the four clamped
+// taps are those of the unheld value, in int32 arithmetic
+RPX_HD int first_tap(float fl, int size) {
+  const int64_t v = (fabsf(fl) < 2147483648.0f ? (int64_t)fl
+                                                 : -2147483648LL) - 1;
+  return (int)(v < -3 ? -3 : (v > size - 1 ? size - 1 : v));
 }
 
 // Catmull-Rom weights of the fractional offset of u - 0.5, and the
@@ -210,12 +227,12 @@ RPX_HD float eval_point(const GridRef& G, float px, float py, float p0,
   float wu[4], wv[4], flu, flv, tu, tu2, tv, tv2;
   weights(u, wu, &flu, &tu, &tu2);
   weights(v, wv, &flv, &tv, &tv2);
-  const int64_t bu = to_i32(flu), bv = to_i32(flv);
+  const int bu = first_tap(flu, G.size), bv = first_tap(flv, G.size);
   float vals[4][4];
   for (int a = 0; a < 4; ++a) {
-    const int64_t iu = clamp_tap(bu + a - 1, G.size);
+    const int iu = clamp_tap(bu + a, G.size);
     for (int b = 0; b < 4; ++b)
-      vals[a][b] = grid_at(G, iu, clamp_tap(bv + b - 1, G.size));
+      vals[a][b] = grid_at(G, iu, clamp_tap(bv + b, G.size));
   }
   float t[4];
   for (int b = 0; b < 4; ++b) {
@@ -228,6 +245,7 @@ RPX_HD float eval_point(const GridRef& G, float px, float py, float p0,
     const float one = 1.0f / G.res;
     const float du[3] = {one, 0.0f, (fma32(-s, px, -(c * py)) + 0.0f) / G.res};
     const float dv[3] = {0.0f, one, (fma32(c, px, -(s * py)) + 0.0f) / G.res};
+    RPX_UNROLL  // (keeps du, dv and J in registers on the card)
     for (int k = 0; k < 3; ++k) {
       float dwu[4], dwv[4], d11[4];
       dweights(du[k], tu, tu2, dwu);
@@ -251,29 +269,91 @@ RPX_HD float eval_point(const GridRef& G, float px, float py, float p0,
 // Reductions, in XLA's CPU order.
 // ---------------------------------------------------------------------
 
-// sum_k J[k][i] J[k][j] over k < K ((K, 3) row-major): one FMA per term
-// from 0, k in order (the elemental dot loop)
-RPX_HD float dot_seq(const float* J, int K, int i, int j) {
+// four floats from a 16-byte aligned address: one 128-bit shared-memory
+// load on the card
+struct F4 {
+  float v[4];
+};
+RPX_HD F4 load4(const float* p) {
+#ifdef __CUDA_ARCH__
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  return {{q.x, q.y, q.z, q.w}};
+#else
+  return {{p[0], p[1], p[2], p[3]}};
+#endif
+}
+
+// 16 terms of two 16-byte aligned arrays, as four 128-bit loads each on
+// the card
+RPX_HD void load16(const float* a, const float* b, F4 x[4], F4 y[4]) {
+  RPX_UNROLL
+  for (int q = 0; q < 4; ++q) {
+    x[q] = load4(a + 4 * q);
+    y[q] = load4(b + 4 * q);
+  }
+}
+
+RPX_HD void fma16(const F4 x[4], const F4 y[4], float* acc) {
+  RPX_UNROLL
+  for (int q = 0; q < 16; ++q)
+    *acc = fma32(x[q / 4].v[q % 4], y[q / 4].v[q % 4], *acc);
+}
+
+// sum_k a[k] b[k] over k < count (a, b 16-byte aligned): one FMA per
+// term from 0, k in order (the elemental dot loop). Its terms load in
+// blocks of 16 into two sets of registers, each block while the one
+// before it runs its FMAs, so that on the card neither the loads'
+// latency nor their instruction count but the chain's FMA latency (4
+// cycles a term; 5.5 measured on an H100) sets its pace.
+RPX_HD float dot_chain(const float* a, const float* b, int count) {
   float acc = 0.0f;
-  for (int k = 0; k < K; ++k) acc = fma32(J[3 * k + i], J[3 * k + j], acc);
+  int k = 0;
+  if (count >= 16) {
+    F4 xa[4], ya[4], xb[4], yb[4];
+    load16(a, b, xa, ya);
+    // xa, ya hold terms [k, k + 16) from here on
+    for (; k + 48 <= count; k += 32) {
+      load16(a + k + 16, b + k + 16, xb, yb);
+      fma16(xa, ya, &acc);
+      load16(a + k + 32, b + k + 32, xa, ya);
+      fma16(xb, yb, &acc);
+    }
+    if (k + 32 <= count) {
+      load16(a + k + 16, b + k + 16, xb, yb);
+      fma16(xa, ya, &acc);
+      fma16(xb, yb, &acc);
+      k += 32;
+    } else {
+      fma16(xa, ya, &acc);
+      k += 16;
+    }
+  }
+  for (; k < count; ++k) acc = fma32(a[k], b[k], acc);
   return acc;
 }
 
-// (J^T r)[i], lane `lane` of XLA's 8-wide gemv: an FMA chain over
-// k = lane, lane + 8, ... below K8 = K rounded down to 8
-RPX_HD float gemv_lane(const float* J, const float* r, int K8, int i,
-                       int lane) {
-  float acc = 0.0f;
-  for (int k = lane; k < K8; k += 8) acc = fma32(J[3 * k + i], r[k], acc);
-  return acc;
-}
-
-// the gemv's remainder: an FMA chain over K8 <= k < K
-RPX_HD float gemv_tail(const float* J, const float* r, int K8, int K,
-                       int i) {
-  float acc = 0.0f;
-  for (int k = K8; k < K; ++k) acc = fma32(J[3 * k + i], r[k], acc);
-  return acc;
+// (J^T r)[i] for one column a of J as XLA's 8-wide row gemv: lane l's
+// FMA chain over rows l, l + 8, ... below K8 = K rounded down to 8, and
+// the remainder's chain over K8 <= k < K (a, r 16-byte aligned)
+RPX_HD void gemv_column(const float* a, const float* r, int K,
+                        float lanes[8], float* tail) {
+  float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  const int K8 = K / 8 * 8;
+#if defined(__CUDACC__)
+#pragma unroll 4
+#endif
+  for (int k = 0; k < K8; k += 8) {
+    const F4 a0 = load4(a + k), a1 = load4(a + k + 4);
+    const F4 r0 = load4(r + k), r1 = load4(r + k + 4);
+    for (int q = 0; q < 4; ++q) {
+      acc[q] = fma32(a0.v[q], r0.v[q], acc[q]);
+      acc[4 + q] = fma32(a1.v[q], r1.v[q], acc[4 + q]);
+    }
+  }
+  float t = 0.0f;
+  for (int k = K8; k < K; ++k) t = fma32(a[k], r[k], t);
+  for (int l = 0; l < 8; ++l) lanes[l] = acc[l];
+  *tail = t;
 }
 
 // the gemv's horizontal sum of its 8 lanes, then the remainder
@@ -283,27 +363,38 @@ RPX_HD float gemv_combine(const float* lanes, float tail) {
   return ((h0 + h2) + (h1 + h3)) + tail;
 }
 
-// XLA splits a sum over n > 32 elements into windows of 32 over the
-// array padded by (32 * ceil(n / 32) - n) / 2 zeros in front
-RPX_HD int n_windows(int n) { return n > 32 ? (n + 31) / 32 : 1; }
-RPX_HD int window_pad(int n) { return n > 32 ? (n_windows(n) * 32 - n) / 2 : 0; }
+// XLA splits a sum over n > 32 values into windows of 32 over the
+// values padded by (32 * ceil(n / 32) - n) / 2 zeros in front (the rest
+// behind), each summed in order from 0; it splits the windows' sums the
+// same way while more than 32 remain, and sums the last ones in order.
+// (For n <= 32 the one window is the sum in order.)
+RPX_HD int n_windows(int n) { return (n + 31) / 32; }
+RPX_HD int window_pad(int n) { return (n_windows(n) * 32 - n) / 2; }
+constexpr int MAX_WINDOWS = (NMAX + 3 + 31) / 32;
 
-// window w's sum of x[i]^2 (each square rounded), in order from 0
-RPX_HD float window_sumsq(const float* x, int n, int w) {
-  if (n <= 32) w = 0;
+// window w's sum of x[i]^2 (each square rounded) or of x[i]
+RPX_HD float window_sum(const float* x, int n, int w, bool square) {
   const int lo = window_pad(n);
-  const int width = n > 32 ? 32 : n;
   float acc = 0.0f;
-  for (int q = 0; q < width; ++q) {
+  for (int q = 0; q < 32; ++q) {
     const int i = w * 32 + q - lo;
-    if (i >= 0 && i < n) acc = acc + x[i] * x[i];
+    if (i >= 0 && i < n) acc = acc + (square ? x[i] * x[i] : x[i]);
   }
   return acc;
 }
 
-RPX_HD float seq_sum(const float* x, int n) {
+// The total of a sum over n values from its first level's n_windows(n)
+// window sums w[] (overwritten: each further level in place, window v's
+// sum replacing w[v], which no later window reads)
+RPX_HD float windows_total(float* w, int n) {
+  int m = n_windows(n);
+  while (m > 32) {
+    const int next = n_windows(m);
+    for (int v = 0; v < next; ++v) w[v] = window_sum(w, m, v, false);
+    m = next;
+  }
   float acc = 0.0f;
-  for (int i = 0; i < n; ++i) acc = acc + x[i];
+  for (int v = 0; v < m; ++v) acc = acc + w[v];
   return acc;
 }
 
@@ -896,15 +987,27 @@ RPX_HD void censi_cov(const float H[3][3], float sigma2, float cov[9]) {
 
 // ---------------------------------------------------------------------
 // One whole refinement as a block program: `ex.each(f)` runs f(tid) for
-// every thread of the block, `ex.sync()` is the barrier between steps.
-// The kernel runs it with one thread per padded point, the host build
-// with the threads one after another.
+// each of the block's THREADS threads, `ex.sync()` is the barrier
+// between steps. The kernel runs it with a block of THREADS threads
+// whatever N is, the host build with the threads one after another.
+// Thread tid owns points tid, tid + T, ... (T = THREADS).
+//
+// The JAX loop is a pure map of the pose (the anchor fixed for the
+// stage): each GN step evaluates the rows and Jacobian at the pose,
+// solves, evaluates the trial, and keeps it if its cost is not higher.
+// The rows at the trial are the next step's rows at the pose when the
+// trial is kept (the interpolation is the same with or without the
+// Jacobian), so each step here evaluates once, with the Jacobian, at
+// the trial. A rejected trial, or a kept one whose bits equal the
+// pose's, leaves every later step of the stage to repeat the same
+// computation on the same inputs: the stage ends there, with the same
+// bits as all `iterations` steps.
 // ---------------------------------------------------------------------
 
 struct Problem {
   GridRef grid[2];      // stage grids (coarse, fine); grid[0] alone for 1 stage
   int stages;           // 1 or 2
-  int n;                // padded points N (takes_points: 256 or 512)
+  int n;                // padded points N (takes_points)
   const float* pts;     // (N, 2)
   const uint8_t* valid; // (N,)
   const float* init;    // (3,)
@@ -914,154 +1017,218 @@ struct Problem {
   float* pose_out;      // (3,)
   float* cov_out;       // (9,) when want_cov
   float* probs_out;     // (N,) when want_cov: the first stage's
+  int* iters_out;       // (2,) GN steps each stage ran (0: not run)
 };
 
+// The block's scalars. The rows (4 (N + 3) floats) are in dynamic shared
+// memory on the card.
 struct Shared {
-  float J[(NMAX + 3) * 3];
-  float r[NMAX + 3];
-  float lanes[24];
-  float tails[3];
-  float win[32];
-  float H[9];
+  float H[6];               // J^T J: (0,0) (0,1) (0,2) (1,1) (1,2) (2,2)
+  float lanes[24];          // J^T r: eight lanes per entry
+  float tails[3];           // and the rows past the last multiple of 8
+  float win[MAX_WINDOWS];   // first-level window sums of sum(r^2)
   float pose[3], anchor[3], trial[3];
-  float old_cost;
+  float c, s;               // cos, sin of trial[2] (of pose[2] for cov)
+  float cost;               // sum(r^2) of the rows at pose
   float w_occ;
   int n_valid;
+  int done;                 // the stage's later steps would repeat
 };
 
-// Thread i's rows of the GN system at `pose`: the residual of point i
-// (i < N) and, for i < 3, the anchor term r[N + i]; with J the
-// Jacobian rows as well
-RPX_HD void residual_rows(const Problem& P, const GridRef& G, int i,
-                          const float pose[3], const float anchor[3],
-                          float c, float s, float w_occ, float* r,
-                          float* J) {
+// The GN system's rows from `base` (shared memory on the card),
+// structure of arrays: J's three columns, then r, `stride` floats apart
+// (column_stride)
+struct Rows {
+  float* base;
+  int stride;
+  RPX_HD float* J(int k) const { return base + k * stride; }
+  RPX_HD float* r() const { return base + 3 * stride; }
+};
+
+// where thread 0 of a step adds its count: the block's other threads
+// add theirs at the same time on the card
+RPX_HD void shared_add(int* p, int v) {
+#ifdef __CUDA_ARCH__
+  atomicAdd(p, v);
+#else
+  *p += v;
+#endif
+}
+
+// J^T J's entry (i, j) in Shared::H
+RPX_HD int gram_slot(int i, int j) {
+  if (i > j) {
+    const int t = i;
+    i = j;
+    j = t;
+  }
+  return i == 0 ? j : (i == 1 ? 2 + j : 5);
+}
+
+// Thread tid's rows of the GN system at sh.trial (cos sh.c, sin sh.s):
+// the residuals and Jacobian rows of its points and, for tid < 3, the
+// anchor row N + tid
+RPX_HD void gn_rows(int tid, int T, const Problem& P, const GridRef& G,
+                    const Shared& sh, const Rows& R) {
   const int n = P.n;
-  if (i < n) {
+  for (int i = tid; i < n; i += T) {
     const float wv = P.valid[i] ? 1.0f : 0.0f;
     float jo[3];
-    const float p = eval_point(G, P.pts[2 * i], P.pts[2 * i + 1], pose[0],
-                               pose[1], c, s, J ? jo : nullptr);
-    r[i] = ((1.0f - p) * w_occ) * wv;
-    if (J)
-      for (int k = 0; k < 3; ++k) J[3 * i + k] = (-jo[k] * w_occ) * wv;
+    const float p = eval_point(G, P.pts[2 * i], P.pts[2 * i + 1],
+                               sh.trial[0], sh.trial[1], sh.c, sh.s, jo);
+    R.r()[i] = ((1.0f - p) * sh.w_occ) * wv;
+    for (int k = 0; k < 3; ++k) R.J(k)[i] = (-jo[k] * sh.w_occ) * wv;
   }
-  if (i < 3) {
-    r[n + i] = i < 2 ? (pose[i] - anchor[i]) * 10.0f : pose[2] - anchor[2];
-    if (J)
-      for (int q = 0; q < 3; ++q)
-        J[3 * (n + i) + q] = q == i ? (i < 2 ? 10.0f : 1.0f) : 0.0f;
+  if (tid < 3) {
+    R.r()[n + tid] = tid < 2 ? (sh.trial[tid] - sh.anchor[tid]) * 10.0f
+                           : sh.trial[2] - sh.anchor[2];
+    for (int q = 0; q < 3; ++q)
+      R.J(q)[n + tid] = q == tid ? (tid < 2 ? 10.0f : 1.0f) : 0.0f;
   }
 }
 
+// Thread tid's part of the reductions over the first K rows, each in
+// XLA's order: threads 0-5 (warp 0) the six J^T J chains of K FMAs (the
+// kernel's critical path), with `gemv` threads 32-34 (warp 1) J^T r's
+// three entries (eight lanes each, and the rows past the last multiple
+// of 8), threads from 64 on the first-level windows of sum(r^2).
+RPX_HD void reduce_rows(int tid, int T, const Rows& R, int K, bool gemv,
+                        Shared& sh) {
+  if (tid < 6) {
+    const int i = tid < 3 ? 0 : (tid < 5 ? 1 : 2);
+    const int j = tid < 3 ? tid : (tid < 5 ? tid - 2 : 2);
+    sh.H[tid] = dot_chain(R.J(i), R.J(j), K);
+  } else if (tid >= 32 && tid < 35) {
+    const int i = tid - 32;
+    if (gemv) gemv_column(R.J(i), R.r(), K, sh.lanes + 8 * i, sh.tails + i);
+  } else if (tid >= 64) {
+    for (int w = tid - 64; w < n_windows(K); w += T - 64)
+      sh.win[w] = window_sum(R.r(), K, w, true);
+  }
+}
+
+// Thread 0: the GN step from the reductions of the rows at sh.pose, into
+// sh.trial with its cos and sin
+RPX_HD void gn_step(Shared& sh) {
+  float g[3], H[3][3];
+  for (int i = 0; i < 3; ++i) {
+    g[i] = gemv_combine(sh.lanes + 8 * i, sh.tails[i]);
+    for (int j = 0; j < 3; ++j) H[i][j] = sh.H[gram_slot(i, j)];
+  }
+  gn_solve(H, g, sh.pose, sh.trial);
+  sh.c = glibc_sincosf(sh.trial[2], 1);
+  sh.s = glibc_sincosf(sh.trial[2], 0);
+}
+
 template <class Exec>
-RPX_HD void refine_block(Exec& ex, const Problem& P, Shared& sh) {
-  const int n = P.n, K = n + 3, K8 = (K / 8) * 8;
-  const int nw = n_windows(K), nwc = n_windows(n);
+RPX_HD void refine_block(Exec& ex, const Problem& P, Shared& sh,
+                         float* rows) {
+  const int n = P.n, K = n + 3, T = THREADS;
+  const Rows R{rows, column_stride(n)};
   ex.each([&](int tid) {
     if (tid == 0) {
-      int cnt = 0;
-      for (int i = 0; i < n; ++i) cnt += P.valid[i] != 0;
-      sh.n_valid = cnt;
-      const int nn = cnt > 1 ? cnt : 1;
-      sh.w_occ = occupied_weight((float)nn, P.y0[nn - 1]);
+      sh.n_valid = 0;
       for (int k = 0; k < 3; ++k) sh.pose[k] = P.init[k];
+      P.iters_out[0] = P.iters_out[1] = 0;
     }
   });
   ex.sync();
+  ex.each([&](int tid) {
+    int cnt = 0;
+    for (int i = tid; i < n; i += T) cnt += P.valid[i] != 0;
+    shared_add(&sh.n_valid, cnt);
+  });
+  ex.sync();
   for (int stage = 0; stage < P.stages; ++stage) {
-    const GridRef& G = P.grid[stage];
+    // (a copy chosen without indexing: P stays in registers on the card)
+    const GridRef G = stage == 0 ? P.grid[0] : P.grid[1];
     ex.each([&](int tid) {
-      if (tid < 3) sh.anchor[tid] = sh.pose[tid];
+      if (tid == 0) {
+        const int nn = sh.n_valid > 1 ? sh.n_valid : 1;
+        sh.w_occ = occupied_weight((float)nn, P.y0[nn - 1]);
+        for (int k = 0; k < 3; ++k) sh.anchor[k] = sh.trial[k] = sh.pose[k];
+        sh.c = glibc_sincosf(sh.pose[2], 1);
+        sh.s = glibc_sincosf(sh.pose[2], 0);
+        sh.done = 0;
+      }
     });
     ex.sync();
-    for (int it = 0; it < P.iterations; ++it) {
-      ex.each([&](int tid) {
-        const float c = glibc_sincosf(sh.pose[2], 1);
-        const float s = glibc_sincosf(sh.pose[2], 0);
-        residual_rows(P, G, tid, sh.pose, sh.anchor, c, s, sh.w_occ, sh.r,
-                     sh.J);
-      });
+    if (P.iterations > 0) {  // the rows at the stage's first pose
+      ex.each([&](int tid) { gn_rows(tid, T, P, G, sh, R); });
       ex.sync();
-      ex.each([&](int tid) {
-        if (tid < 9) {
-          sh.H[tid] = dot_seq(sh.J, K, tid / 3, tid % 3);
-        } else if (tid >= 32 && tid < 56) {
-          const int q = tid - 32;
-          sh.lanes[q] = gemv_lane(sh.J, sh.r, K8, q / 8, q % 8);
-        } else if (tid >= 64 && tid < 67) {
-          sh.tails[tid - 64] = gemv_tail(sh.J, sh.r, K8, K, tid - 64);
-        } else if (tid >= 96 && tid < 96 + nw) {
-          sh.win[tid - 96] = window_sumsq(sh.r, K, tid - 96);
-        }
-      });
+      ex.each([&](int tid) { reduce_rows(tid, T, R, K, true, sh); });
       ex.sync();
       ex.each([&](int tid) {
         if (tid == 0) {
-          float g[3], H[3][3];
-          for (int i = 0; i < 3; ++i) {
-            g[i] = gemv_combine(sh.lanes + 8 * i, sh.tails[i]);
-            for (int j = 0; j < 3; ++j) H[i][j] = sh.H[3 * i + j];
-          }
-          sh.old_cost = seq_sum(sh.win, nw);
-          gn_solve(H, g, sh.pose, sh.trial);
+          sh.cost = windows_total(sh.win, K);
+          gn_step(sh);
         }
       });
       ex.sync();
-      ex.each([&](int tid) {
-        const float c = glibc_sincosf(sh.trial[2], 1);
-        const float s = glibc_sincosf(sh.trial[2], 0);
-        residual_rows(P, G, tid, sh.trial, sh.anchor, c, s, sh.w_occ, sh.r,
-                     nullptr);
-      });
+    }
+    for (int it = 0; it < P.iterations; ++it) {
+      ex.each([&](int tid) { gn_rows(tid, T, P, G, sh, R); });
+      ex.sync();
+      ex.each([&](int tid) { reduce_rows(tid, T, R, K, true, sh); });
       ex.sync();
       ex.each([&](int tid) {
-        if (tid < nw) sh.win[32 - nw + tid] = window_sumsq(sh.r, K, tid);
+        if (tid == 0) {
+          const float cost = windows_total(sh.win, K);
+          P.iters_out[stage] = it + 1;
+          if (cost <= sh.cost) {  // keep the trial
+            bool same = true;
+            for (int k = 0; k < 3; ++k) {
+              same = same && f2u(sh.trial[k]) == f2u(sh.pose[k]);
+              sh.pose[k] = sh.trial[k];
+            }
+            sh.cost = cost;
+            sh.done = same;
+          } else {
+            sh.done = 1;
+          }
+          if (!sh.done && it + 1 < P.iterations) gn_step(sh);
+        }
       });
       ex.sync();
-      ex.each([&](int tid) {
-        if (tid == 0 && seq_sum(sh.win + 32 - nw, nw) <= sh.old_cost)
-          for (int k = 0; k < 3; ++k) sh.pose[k] = sh.trial[k];
-      });
-      ex.sync();
+      if (sh.done) break;
     }
     if (!P.want_cov) continue;
     // the covariance's rows at the stage's pose: J, the masked residual
     // (in r) and the probabilities
     const bool last = stage == P.stages - 1;
     ex.each([&](int tid) {
-      if (tid < n) {
-        const float c = glibc_sincosf(sh.pose[2], 1);
-        const float s = glibc_sincosf(sh.pose[2], 0);
+      if (tid == 0) {
+        sh.c = glibc_sincosf(sh.pose[2], 1);
+        sh.s = glibc_sincosf(sh.pose[2], 0);
+      }
+    });
+    ex.sync();
+    ex.each([&](int tid) {
+      for (int i = tid; i < n; i += T) {
         float jo[3];
-        const float p = eval_point(G, P.pts[2 * tid], P.pts[2 * tid + 1],
-                                   sh.pose[0], sh.pose[1], c, s,
+        const float p = eval_point(G, P.pts[2 * i], P.pts[2 * i + 1],
+                                   sh.pose[0], sh.pose[1], sh.c, sh.s,
                                    last ? jo : nullptr);
-        if (stage == 0) P.probs_out[tid] = p;
+        if (stage == 0) P.probs_out[i] = p;
         if (last) {
-          const float vf = P.valid[tid] ? 1.0f : 0.0f;
-          for (int k = 0; k < 3; ++k) sh.J[3 * tid + k] = -jo[k] * vf;
-          sh.r[tid] = P.valid[tid] ? 1.0f - p : 0.0f;
+          const float vf = P.valid[i] ? 1.0f : 0.0f;
+          for (int k = 0; k < 3; ++k) R.J(k)[i] = -jo[k] * vf;
+          R.r()[i] = P.valid[i] ? 1.0f - p : 0.0f;
         }
       }
     });
     ex.sync();
     if (!last) continue;
-    ex.each([&](int tid) {
-      if (tid < 9)
-        sh.H[tid] = dot_seq(sh.J, n, tid / 3, tid % 3);
-      else if (tid >= 32 && tid < 32 + nwc)
-        sh.win[tid - 32] = window_sumsq(sh.r, n, tid - 32);
-    });
+    ex.each([&](int tid) { reduce_rows(tid, T, R, n, false, sh); });
     ex.sync();
     ex.each([&](int tid) {
       if (tid == 0) {
-        const float ssum = seq_sum(sh.win, nwc);
+        const float ssum = windows_total(sh.win, n);
         const int nn = sh.n_valid > 1 ? sh.n_valid : 1;
         const float sigma2 = ssum / fmaxf((float)nn + -3.0f, 1.0f);
         float H[3][3];
         for (int i = 0; i < 3; ++i)
-          for (int j = 0; j < 3; ++j) H[i][j] = sh.H[3 * i + j];
+          for (int j = 0; j < 3; ++j) H[i][j] = sh.H[gram_slot(i, j)];
         censi_cov(H, sigma2, P.cov_out);
       }
     });

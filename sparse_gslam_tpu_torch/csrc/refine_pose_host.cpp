@@ -11,7 +11,6 @@
 
 #include <algorithm>
 #include <atomic>
-#include <memory>
 #include <thread>
 #include <vector>
 
@@ -20,10 +19,9 @@
 namespace {
 
 struct HostExec {
-  int threads;
   template <class F>
   void each(F&& f) {
-    for (int tid = 0; tid < threads; ++tid) f(tid);
+    for (int tid = 0; tid < rpx::THREADS; ++tid) f(tid);
   }
   void sync() {}
 };
@@ -37,11 +35,12 @@ extern "C" int refine_pose_host(
     const float* g1, int size1, const float* origin1, float res1,
     int stages, const float* pts, const uint8_t* valid, const float* init,
     const float* y0, int batch, int n, int iterations, int want_cov,
-    float* pose, float* cov, float* probs) {
+    float* pose, float* cov, float* probs, int* iters) {
   if (!rpx::takes_points(n) || batch < 1 ||
       (stages != 1 && stages != 2) || iterations < 0)
     return 1;
-  auto sh = std::make_unique<rpx::Shared>();
+  rpx::Shared sh;
+  std::vector<float> rows(rpx::rows_bytes(n) / sizeof(float));
   for (int b = 0; b < batch; ++b) {
     rpx::Problem P;
     P.grid[0] = {g0, size0, origin0[0], origin0[1], res0};
@@ -57,8 +56,9 @@ extern "C" int refine_pose_host(
     P.pose_out = pose + 3 * b;
     P.cov_out = cov + 9 * b;
     P.probs_out = probs + (size_t)b * n;
-    HostExec ex{n};
-    rpx::refine_block(ex, P, *sh);
+    P.iters_out = iters + 2 * b;
+    HostExec ex;
+    rpx::refine_block(ex, P, sh, rows.data());
   }
   return 0;
 }

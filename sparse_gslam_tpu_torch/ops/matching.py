@@ -626,7 +626,7 @@ def _refine(stages, points, point_valid, init_pose, iterations, want_cov):
     if stages[0][0].device.type == "cuda":
         from .refine_cuda import refine_cuda
 
-        pose, cov, probs = refine_cuda(
+        pose, cov, probs, _ = refine_cuda(
             stages, points[None].contiguous(),
             point_valid[None].contiguous(), init_pose[None].contiguous(),
             iterations=iterations, want_cov=want_cov)

@@ -20,11 +20,12 @@ JAX package by tests/test_torch_refine_exact.py:
   and adds them in order; the Jacobian's two JVP terms are FMA chains
   from 0, each plus 0, summed;
 - 20/sqrt(n) is 20 * rsqrt(n): the x86 rsqrtss approximation (a table by
-  n, below) and two Newton steps with FMAs;
+  n up to MAX_POINTS, data/rsqrtss.hex) and two Newton steps with FMAs;
 - J^T J: one FMA per term from 0, rows in order; J^T r: eight lane
   accumulators over the rows below a multiple of 8, a horizontal sum,
   then the remainder's FMA chain; sums of squares: windows of 32 over
-  the array padded by half the missing length in front, then in order;
+  the array padded by half the missing length in front, again over the
+  windows' sums while more than 32 remain (N >= 1024), then in order;
 - jnp.linalg.solve and eigh: LAPACK sgetrf, strsm (twice) and ssyevd,
   which jaxlib takes from SciPy (OpenBLAS 0.3.30, SkylakeX kernels),
   transcribed here as scalar float32 code with the FMAs and orders of
@@ -37,66 +38,29 @@ the host in numpy, whatever the device of the caller's tensors.
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 
 F32 = np.float32
 PMIN = F32(0.1)
 
-# rsqrtss(n) for n = 1..512 on x86 (bits >> 11; the approximation has
-# 12 significant bits), as XLA's 20 / sqrt(n) starts from it
-_Y0_HEX = (
-    "07effe07e69f07e27907dffe07dc9e07da2007d83007d69f07d55407d43c07d34b07d279"
-    "07d1bf07d11a07d08607cffe07cf0a07ce2a07cd5c07cc9e07cbed07cb4907caaf07ca20"
-    "07c99907c91907c8a107c83007c7c407c75e07c6fd07c69f07c64707c5f207c5a207c554"
-    "07c50a07c4c307c47e07c43c07c3fd07c3bf07c38407c34b07c31407c2df07c2ab07c279"
-    "07c24807c21907c1ec07c1bf07c19407c16b07c14207c11a07c0f407c0ce07c0a907c086"
-    "07c06307c04107c02007bffe07bfbf07bf8107bf4507bf0a07bed007be9707be6007be2a"
-    "07bdf507bdc107bd8e07bd5c07bd2b07bcfb07bccc07bc9e07bc7007bc4407bc1807bbed"
-    "07bbc307bb9a07bb7107bb4907bb2207bafb07bad507baaf07ba8b07ba6607ba4307ba20"
-    "07b9fd07b9db07b9ba07b99907b97807b95807b93807b91907b8fb07b8dc07b8bf07b8a1"
-    "07b88407b86807b84c07b83007b81407b7f907b7de07b7c407b7aa07b79007b77707b75e"
-    "07b74507b72d07b71407b6fd07b6e507b6ce07b6b707b69f07b68907b67307b65d07b647"
-    "07b63107b61c07b60707b5f207b5de07b5ca07b5b507b5a207b58e07b57a07b56707b554"
-    "07b54107b52f07b51c07b50a07b4f807b4e607b4d407b4c307b4b107b4a007b48f07b47e"
-    "07b46d07b45d07b44c07b43c07b42c07b41c07b40c07b3fd07b3ed07b3de07b3ce07b3bf"
-    "07b3b007b3a107b39307b38407b37607b36707b35907b34b07b33d07b32f07b32207b314"
-    "07b30607b2f907b2ec07b2df07b2d107b2c507b2b807b2ab07b29e07b29207b28507b279"
-    "07b26d07b26007b25407b24807b23d07b23107b22507b21907b20e07b20207b1f707b1ec"
-    "07b1e107b1d507b1ca07b1bf07b1b507b1aa07b19f07b19407b18a07b17f07b17507b16b"
-    "07b16007b15607b14c07b14207b13807b12e07b12407b11a07b11007b10707b0fd07b0f4"
-    "07b0ea07b0e107b0d707b0ce07b0c507b0bc07b0b307b0a907b0a007b09807b08f07b086"
-    "07b07d07b07407b06c07b06307b05a07b05207b04907b04107b03907b03007b02807b020"
-    "07b01807b01007b00807affe07afee07afde07afce07afbf07afaf07afa007af9007af81"
-    "07af7207af6307af5407af4507af3607af2707af1807af0a07aefb07aeed07aede07aed0"
-    "07aec207aeb307aea507ae9707ae8907ae7b07ae6e07ae6007ae5207ae4507ae3707ae2a"
-    "07ae1c07ae0f07ae0207adf507ade807addb07adce07adc107adb407ada707ad9b07ad8e"
-    "07ad8107ad7507ad6807ad5c07ad5007ad4307ad3707ad2b07ad1f07ad1307ad0707acfb"
-    "07acef07ace307acd807accc07acc007acb507aca907ac9e07ac9207ac8707ac7c07ac70"
-    "07ac6507ac5a07ac4f07ac4407ac3907ac2e07ac2307ac1807ac0d07ac0307abf807abed"
-    "07abe307abd807abce07abc307abb907abae07aba407ab9a07ab8f07ab8507ab7b07ab71"
-    "07ab6707ab5d07ab5307ab4907ab3f07ab3507ab2b07ab2207ab1807ab0e07ab0507aafb"
-    "07aaf107aae807aade07aad507aacb07aac207aab907aaaf07aaa607aa9d07aa9407aa8b"
-    "07aa8207aa7807aa6f07aa6607aa5d07aa5507aa4c07aa4307aa3a07aa3107aa2807aa20"
-    "07aa1707aa0e07aa0607a9fd07a9f507a9ec07a9e407a9db07a9d307a9ca07a9c207a9ba"
-    "07a9b107a9a907a9a107a99907a99007a98807a98007a97807a97007a96807a96007a958"
-    "07a95007a94807a94007a93807a93107a92907a92107a91907a91207a90a07a90207a8fb"
-    "07a8f307a8ec07a8e407a8dc07a8d507a8ce07a8c607a8bf07a8b707a8b007a8a907a8a1"
-    "07a89a07a89307a88c07a88407a87d07a87607a86f07a86807a86107a85a07a85307a84c"
-    "07a84507a83e07a83707a83007a82907a82207a81b07a81407a80d07a80707a80007a7f9"
-    "07a7f207a7ec07a7e507a7de07a7d807a7d107a7cb07a7c407a7be07a7b707a7b007a7aa"
-    "07a7a407a79d07a79707a79007a78a07a78407a77d07a77707a77107a76a07a76407a75e"
-    "07a75807a75107a74b07a74507a73f07a73907a73307a72d07a72707a72007a71a07a714"
-    "07a70e07a70807a70307a6fd07a6f707a6f107a6eb07a6e507a6df07a6d907a6d307a6ce"
-    "07a6c807a6c207a6bc07a6b707a6b107a6ab07a6a607a69f"
-)
+# padded query points the refinement takes: the rsqrtss table's length
+MAX_POINTS = 4096
+# rsqrtss(n) for n = 1..MAX_POINTS on x86 (bits >> 11, five hex digits
+# each; the approximation has 12 significant bits), as XLA's 20 / sqrt(n)
+# starts from it
+_Y0_FILE = os.path.join(os.path.dirname(os.path.dirname(__file__)), "data",
+                        "rsqrtss.hex")
 
 
 @functools.lru_cache(maxsize=None)
 def rsqrtss_table() -> np.ndarray:
-    """(512,) float32: the x86 rsqrtss approximation of n = 1..512."""
-    s = "".join(_Y0_HEX)
-    bits = np.array([int(s[i:i + 6], 16) for i in range(0, len(s), 6)],
+    """(MAX_POINTS,) float32: the x86 rsqrtss approximation of
+    n = 1..MAX_POINTS."""
+    with open(_Y0_FILE) as fh:
+        s = "".join(fh.read().split())
+    bits = np.array([int(s[i:i + 5], 16) for i in range(0, len(s), 5)],
                     np.uint32) << np.uint32(11)
     return bits.view(np.float32)
 
@@ -290,19 +254,27 @@ def _seq_sum(x):
     return acc
 
 
-def _sum_sq(x):
-    """sum(x * x) in XLA's order: windows of 32 when longer than 32."""
-    x = x * x
+def _window_sums(x):
+    """One level of XLA's split of a long sum: windows of 32 over x
+    padded by half the missing length in front (the rest behind), each
+    summed in order from 0."""
     n = len(x)
-    if n <= 32:
-        return _seq_sum(x)
     m = -(-n // 32) * 32
     lo = (m - n) // 2
     xp = np.concatenate([np.zeros(lo, F32), x, np.zeros(m - n - lo, F32)])
     parts = np.zeros(m // 32, F32)
     for q in range(32):
         parts = parts + xp[q::32]
-    return _seq_sum(parts)
+    return parts
+
+
+def _sum_sq(x):
+    """sum(x * x) in XLA's order: windows of 32 while more than 32
+    values remain (the squares, then the windows' sums), then in order."""
+    x = x * x
+    while len(x) > 32:
+        x = _window_sums(x)
+    return _seq_sum(x)
 
 
 # ---------------------------------------------------------------------------
@@ -778,6 +750,9 @@ def refine(grids, points, valid, init, iterations: int = 10,
     gives glibc's float32 cos and sin."""
     pts = np.asarray(points, F32)
     valid = np.asarray(valid, bool)
+    if len(pts) > MAX_POINTS:
+        raise ValueError(f"N={len(pts)} padded points: the refinement takes "
+                         f"at most {MAX_POINTS}")
     n_valid = int(valid.sum())
     w_occ = occupied_weight(n_valid)
     wv = valid.astype(F32)

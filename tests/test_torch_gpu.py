@@ -76,7 +76,8 @@ def test_pruned_matcher_and_refinement_on_cuda_match_cpu():
     np.testing.assert_array_equal(out["cuda"][2], out["cpu"][2])
     np.testing.assert_array_equal(out["cuda"][3], out["cpu"][3])
 
-    pts = np.zeros((128, 2), np.float32)
+    # padded as the backend pads a query (_bucket(n, 256))
+    pts = np.zeros((256, 2), np.float32)
     pts[:len(query)] = query
     init = np.array([0.45, -0.33, 0.11], np.float32)
     res = {}
@@ -84,16 +85,17 @@ def test_pruned_matcher_and_refinement_on_cuda_match_cpu():
         res[dev] = matching.refine_pose_cov(
             probs.to(dev), origin.to(dev), 0.1,
             torch.from_numpy(pts).to(dev),
-            torch.from_numpy(np.arange(128) < len(query)).to(dev),
+            torch.from_numpy(np.arange(256) < len(query)).to(dev),
             torch.from_numpy(init).to(dev))
     for a, b in zip(res["cuda"], res["cpu"]):
         np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
 
 
-def refine_world(G, res):
+def refine_world(G, res, n=512):
     """A 7 x 6 m room as a (G, G) grid centred on the origin: walls 0.9
     three cells wide, free space 0.2 with seeded noise, unknown outside;
-    and a scan of its walls from (0.3, 0.4, 0.2), padded to 512."""
+    and a scan of its walls from (0.3, 0.4, 0.2) (400 beams, n - 64
+    above n = 512), padded to n (or not cut: the caller takes n)."""
     rng = np.random.default_rng(G)
     origin = np.full(2, -G * res / 2, np.float32)
     c = origin[0] + (np.arange(G) + 0.5) * res
@@ -105,7 +107,8 @@ def refine_world(G, res):
     wall = near & ((np.abs(X - 4) < band) | (np.abs(X + 3) < band)
                    | (np.abs(Y + 1) < band) | (np.abs(Y - 5) < band))
     g = np.where(wall, 0.9, g).astype(np.float32)
-    a = np.linspace(-np.pi, np.pi, 400, endpoint=False)
+    beams = 400 if n <= 512 else n - 64
+    a = np.linspace(-np.pi, np.pi, beams, endpoint=False)
     gt = np.array([0.3, 0.4, 0.2])
     walls = [((4.0, 0.0), (0.0, 1.0)), ((-3.0, 0.0), (0.0, 1.0)),
              ((0.0, -1.0), (1.0, 0.0)), ((0.0, 5.0), (1.0, 0.0))]
@@ -117,28 +120,30 @@ def refine_world(G, res):
             t = ((px - gt[0]) * dy - (py - gt[1]) * dx) / den
         best = np.minimum(best, np.where((np.abs(den) > 1e-9) & (t > 0), t,
                                          np.inf))
-    pts = np.zeros((512, 2), np.float32)
-    pts[:400] = np.stack([best * np.cos(a), best * np.sin(a)], 1)
-    return g, origin, pts
+    pts = np.zeros((max(n, beams), 2), np.float32)
+    pts[:beams] = np.stack([best * np.cos(a), best * np.sin(a)], 1)
+    return g, origin, pts, beams
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [256, 512])
+@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096])
 def test_refine_kernel_matches_plain_on_cuda(n):
     """The refinement kernel (one launch per call) against its plain
-    version on the same CUDA tensors, torch.equal: one stage at 0.1 m,
-    two stages (0.1 m dilated, then 0.05 m) and the pose alone."""
+    version on the same CUDA tensors, torch.equal, at every padded point
+    count it takes (refine_cuda.POINTS): one stage at 0.1 m, two stages
+    (0.1 m dilated, then 0.05 m) and the pose alone."""
     need_card()
     from sparse_gslam_tpu_torch.ops import refine_cuda
 
+    assert n in refine_cuda.POINTS
     dev = torch.device("cuda")
-    g1, o1, pts = refine_world(320, 0.1)
-    g2, o2, _ = refine_world(576, 0.05)
+    g1, o1, pts, beams = refine_world(320, 0.1, n)
+    g2, o2, _, _ = refine_world(576, 0.05, n)
     coarse = precompute_pyramid(torch.from_numpy(g1).to(dev), 1)[0]
     s1 = (torch.from_numpy(g1).to(dev), torch.from_numpy(o1).to(dev), 0.1)
     s2 = (torch.from_numpy(g2).to(dev), torch.from_numpy(o2).to(dev), 0.05)
     q = (torch.from_numpy(pts[:n]).to(dev),
-         (torch.arange(n) < min(n, 400) - 20).to(dev),
+         (torch.arange(n) < min(n, beams) - 20).to(dev),
          torch.tensor([0.33, 0.36, 0.21], dtype=torch.float32, device=dev))
     s0 = (coarse.contiguous(), s1[1], 0.1)
     before = refine_cuda.refine_cuda.launches

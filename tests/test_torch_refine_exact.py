@@ -3,21 +3,25 @@
 - The plain version (sparse_gslam_tpu_torch/ops/refine_exact.py, behind
   ops/matching.py refine_pose / refine_pose_cov /
   refine_pose_cov_two_stage on the CPU) against the JAX package's
-  compiled programs on 40 seeded cases: a room and a corridor (whose
+  compiled programs on 58 seeded cases: a room and a corridor (whose
   J^T J is near-singular along the corridor), grids at 0.1 m and
-  0.05 m, N = 256 and 512 padded points, one stage, the two-stage
-  variants (dilated score grid, then the raw grid or the 0.05 m
-  high-res grid) and refine_pose alone. np.array_equal on pose,
-  covariance and probabilities.
+  0.05 m, every padded point count the callers use (N = 256 to 4096),
+  one stage, the two-stage variants (dilated score grid, then the raw
+  grid or the 0.05 m high-res grid) and refine_pose alone.
+  np.array_equal on pose, covariance and probabilities. XLA's J^T J and
+  J^T r on their own against the plain version's chains at K = N + 3.
 - The 3x3 LAPACK transcriptions (sgetrf, the two strsm, ssyevd) against
   SciPy's LAPACK, which jaxlib calls: the numpy ones on 3000 matrices,
   the CUDA kernel's header (csrc/refine_pose_exact.cuh, built with g++
   through csrc/refine_pose_host.cpp) on 10^5. Singular factors give NaN
   in both; NaN counts as equal to NaN.
 - The header's whole block program (the kernel's algorithm, threads run
-  in turn) against the plain version, and its sinf/cosf against the C
-  library on a dense sample of |theta| <= 4 pi.
-- The rsqrtss table against the CPU's own instruction (x86).
+  in turn) against the plain version at every N, on
+  cases that end their stage at the first GN step (its trial rejected)
+  and that run all ten (the plain version always runs ten), and its
+  sinf/cosf against the C library on a dense sample of |theta| <= 4 pi.
+- The rsqrtss table against the CPU's own instruction (x86), and the
+  refusal of other point counts.
 """
 import ctypes
 import platform
@@ -25,6 +29,7 @@ import shutil
 import struct
 import subprocess
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -130,11 +135,13 @@ def worlds():
 
 def query(world, n_pad, seed):
     """A scan taken at a seeded pose, in its own frame, padded to
-    n_pad; the initial pose off by a few cm and a degree or two."""
+    n_pad; the initial pose off by a few cm and a degree or two. 720
+    beams up to N = 512, twice N beams above, so that most padded
+    points are valid."""
     rng = np.random.default_rng(seed)
     gt = np.array([rng.uniform(-0.5, 0.5), rng.uniform(0.0, 0.8),
                    rng.uniform(-0.4, 0.4)])
-    pts = scan_points(world, gt, 720, rng)
+    pts = scan_points(world, gt, 720 if n_pad <= 512 else 2 * n_pad, rng)
     keep = rng.permutation(len(pts))[: min(len(pts), n_pad - 40)]
     pts = pts[np.sort(keep)]
     padded = np.zeros((n_pad, 2), F32)
@@ -145,7 +152,8 @@ def query(world, n_pad, seed):
     return padded, valid, init
 
 
-# (program, world, grid keys of the stages, N, seed): 40 cases
+# (program, world, grid keys of the stages, N, seed): 40 cases at the
+# sim worlds' N, 18 at the larger ones (more beams, e.g. 60)
 CASES = (
     [("cov", w, (res,), n, s) for w in WALLS for res in (0.1, 0.05)
      for n in (256, 512) for s in range(3)]
@@ -153,6 +161,12 @@ CASES = (
        for s in range(2)]
     + [("two", w, ("score", 0.1), 256, s) for w in WALLS for s in range(2)]
     + [("pose", w, (0.1,), 256, s) for w in WALLS for s in range(2)]
+    + [(prog, w, keys, n, s) for n in (1024, 2048, 4096)
+       for prog, w, keys, s in (
+           ("cov", "room", (0.1,), 0), ("cov", "corridor", (0.05,), 1),
+           ("two", "room", ("score", 0.05), 2),
+           ("two", "corridor", ("score", 0.1), 3),
+           ("pose", "room", (0.1,), 4), ("pose", "corridor", (0.05,), 5))]
 )
 
 
@@ -311,51 +325,137 @@ def test_header_lapack_bit_equal_to_scipy(host_lib):
 
 
 def header_refine(lib, stages, pts, valid, init, want_cov=True, rc=0):
+    """The header's block program (host build) on one problem: [pose,
+    cov, probs] and the GN steps each stage ran."""
     (g0, o0, r0), (g1, o1, r1) = stages[0], stages[-1]
     g0, g1 = np.ascontiguousarray(g0, F32), np.ascontiguousarray(g1, F32)
     n = len(pts)
     pose, cov, probs = (np.zeros(3, F32), np.zeros(9, F32),
                         np.zeros(n, F32))
+    steps = np.zeros(2, np.int32)
     y0 = rx.rsqrtss_table()
     valid8 = np.ascontiguousarray(valid, np.uint8)
     assert lib.refine_pose_host(
         _ptr(g0), g0.shape[0], _ptr(o0), r0, _ptr(g1), g1.shape[0],
         _ptr(o1), r1, len(stages), _ptr(pts), _ptr(valid8), _ptr(init),
         _ptr(y0), 1, n, 10, int(want_cov), _ptr(pose), _ptr(cov),
-        _ptr(probs)) == rc
-    return [pose, cov.reshape(3, 3), probs]
+        _ptr(probs), _ptr(steps)) == rc
+    return [pose, cov.reshape(3, 3), probs], steps
 
 
-@pytest.mark.parametrize("world,keys,n,seed", [
-    ("room", (0.1,), 256, 0), ("corridor", (0.05,), 512, 1),
-    ("room", ("score", 0.05), 512, 2), ("corridor", ("score", 0.1), 256, 3),
+@pytest.mark.parametrize("program,world,keys,n,seed", [
+    ("cov", "room", (0.1,), 256, 0),
+    ("cov", "corridor", (0.05,), 512, 1),
+    ("two", "room", ("score", 0.05), 512, 2),
+    ("two", "corridor", ("score", 0.1), 256, 3),
+    ("pose", "corridor", (0.05,), 512, 5),
+    ("cov", "room", (0.1,), 1024, 0),
+    ("two", "corridor", ("score", 0.1), 1024, 3),
+    ("pose", "room", (0.05,), 1024, 6),
+    ("cov", "corridor", (0.05,), 2048, 1),
+    ("pose", "room", (0.1,), 2048, 4),
+    ("two", "room", ("score", 0.1), 2048, 7),
+    ("two", "room", ("score", 0.05), 4096, 2),
+    ("cov", "corridor", (0.05,), 4096, 1),
 ])
-def test_header_block_program_bit_equal_to_plain(worlds, host_lib, world,
-                                                 keys, n, seed):
+def test_header_block_program_bit_equal_to_plain(worlds, host_lib, program,
+                                                 world, keys, n, seed):
     stages = _stages(worlds, world, keys)
     pts, valid, init = query(world, n, seed)
-    got = header_refine(host_lib, stages, pts, valid, init)
-    ref = port_refine("cov" if len(keys) == 1 else "two", stages, pts,
-                      valid, init)
+    got, _ = header_refine(host_lib, stages, pts, valid, init,
+                           want_cov=program != "pose")
+    ref = port_refine(program, stages, pts, valid, init)
     for g, r in zip(got, ref):
         np.testing.assert_array_equal(g, r)
 
 
-@pytest.mark.parametrize("n", [32, 128, 224, 288, 384, 1024])
+def stop_query(world, n, seed, scale):
+    """query's scan with the initial pose moved further off, by up to
+    `scale` times 5 cm and 0.05 rad (seeded)."""
+    pts, valid, init = query(world, n, seed)
+    rng = np.random.default_rng(1000 + seed)
+    off = rng.uniform(-0.05, 0.05, 3) * scale
+    return pts, valid, (init + off).astype(F32)
+
+
+def first_step_costs(stage, pts, valid, init):
+    """The JAX loop's first GN step in the plain version's arithmetic:
+    (cost at the trial, cost at init)."""
+    grid, origin, res = stage
+    sg = np.where(grid > 0, grid, rx.PMIN).astype(F32)
+    origin, res = np.asarray(origin, F32), F32(res)
+    w_occ = rx.occupied_weight(int(valid.sum()))
+    wv = valid.astype(F32)
+    c, s = tm._cos_sin(init[2])
+    p, jo = rx.evaluate(sg, origin, res, pts, init, c, s, True)
+    r = rx._residuals(p, init, init, w_occ, wv)
+    J = np.concatenate([(-jo * w_occ) * wv[:, None],
+                        np.diag(np.array([10, 10, 1], F32))])
+    trial = rx.gn_solve(rx._gram(J), rx._gemv(J, r), init)
+    c, s = tm._cos_sin(trial[2])
+    p2, _ = rx.evaluate(sg, origin, res, pts, trial, c, s, False)
+    return (rx._sum_sq(rx._residuals(p2, trial, init, w_occ, wv)),
+            rx._sum_sq(r))
+
+
+# (world, grid key, N, seed, scale, GN steps the stage runs): the first
+# trial raises the cost, or every step is kept and moves the pose
+# (chosen so by a search over seeds)
+STOP_CASES = [
+    ("corridor", 0.05, 256, 28, 1, 1), ("room", 0.1, 1024, 3, 6, 1),
+    ("corridor", 0.05, 1024, 0, 6, 1), ("room", 0.1, 4096, 22, 6, 1),
+    ("room", 0.1, 256, 4, 6, 10), ("corridor", 0.05, 256, 5, 6, 10),
+    ("room", 0.1, 4096, 1, 6, 10), ("corridor", 0.05, 4096, 1, 6, 10),
+]
+
+
+@pytest.mark.parametrize("world,key,n,seed,scale,steps", STOP_CASES)
+def test_header_early_stop_bit_equal_to_all_steps(worlds, host_lib, world,
+                                                  key, n, seed, scale,
+                                                  steps):
+    """The block program ends a stage at the first step that every later
+    step would repeat; the plain version runs all ten. A stage whose
+    first trial is rejected stops after one step with the initial pose;
+    one that keeps moving runs all ten. Both give the plain bits."""
+    stages = _stages(worlds, world, (key,))
+    pts, valid, init = stop_query(world, n, seed, scale)
+    got, ran = header_refine(host_lib, stages, pts, valid, init)
+    assert list(ran) == [steps, 0]
+    ref = port_refine("cov", stages, pts, valid, init)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
+    if steps == 1:
+        trial_cost, cost = first_step_costs(stages[0], pts, valid, init)
+        assert trial_cost > cost
+        np.testing.assert_array_equal(got[0], init)
+
+
+@pytest.mark.parametrize("n", [32, 128, 224, 288, 384, 5000, 8192])
 def test_kernel_refuses_other_point_counts(worlds, host_lib, n):
-    """The block program hands fixed thread ranges their reductions, so
-    the launcher, its host build and the wrapper take N = 256 and 512
-    only (the smallest, 256, runs in the block-program test above)."""
+    """The launcher, its host build and the wrapper take the counts the
+    callers pad to, 256 * 2^k up to 4096 (each runs in the tests
+    above), and no other."""
     stages = _stages(worlds, "room", (0.1,))
     pts = np.zeros((n, 2), F32)
     header_refine(host_lib, stages, pts, np.ones(n, bool),
                   np.zeros(3, F32), rc=1)
-    assert refine_cuda.POINTS == (256, 512)
+    assert refine_cuda.POINTS == (256, 512, 1024, 2048, 4096)
     with pytest.raises(ValueError, match=f"N={n} padded points"):
         refine_cuda.refine_cuda(
             [(torch.tensor(g), torch.tensor(o), r) for g, o, r in stages],
             torch.zeros(1, n, 2), torch.ones(1, n, dtype=torch.bool),
             torch.zeros(1, 3))
+
+
+@pytest.mark.parametrize("n", [4097, 8192])
+def test_plain_refuses_more_than_max_points(worlds, n):
+    """Above 4096 padded points (no configuration pads so far) the plain
+    version raises, naming N and the limit, as the kernel's wrapper
+    does."""
+    stages = _stages(worlds, "room", (0.1,))
+    with pytest.raises(ValueError, match=f"N={n} padded points.*4096"):
+        port_refine("cov", stages, np.zeros((n, 2), F32), np.ones(n, bool),
+                    np.zeros(3, F32))
 
 
 def test_header_sincosf_matches_libm(host_lib):
@@ -368,11 +468,12 @@ def test_header_sincosf_matches_libm(host_lib):
 
 
 def test_rsqrtss_table_is_the_cpus(tmp_path):
-    """The table is x86 rsqrtss of n = 1..512 (checked where the CPU is
+    """The table is x86 rsqrtss of n = 1..4096 (checked where the CPU is
     one), and occupied_weight refines it as XLA does."""
     table = rx.rsqrtss_table()
-    assert table.shape == (512,) and table.dtype == np.float32
-    rel = np.abs(table * np.sqrt(np.arange(1, 513)) - 1)
+    assert table.shape == (4096,) and table.dtype == np.float32
+    assert len(table) == rx.MAX_POINTS == refine_cuda.POINTS[-1]
+    rel = np.abs(table * np.sqrt(np.arange(1, 4097)) - 1)
     assert rel.max() < 1.5 * 2.0**-12
     gcc = shutil.which("gcc")
     if platform.machine() not in ("x86_64", "AMD64") or gcc is None:
@@ -380,7 +481,7 @@ def test_rsqrtss_table_is_the_cpus(tmp_path):
     src = tmp_path / "rsq.c"
     src.write_text(
         "#include <immintrin.h>\n#include <stdio.h>\n#include <string.h>\n"
-        "int main(void){for(int n=1;n<=512;n++){float y=_mm_cvtss_f32("
+        "int main(void){for(int n=1;n<=4096;n++){float y=_mm_cvtss_f32("
         "_mm_rsqrt_ss(_mm_set_ss((float)n)));unsigned u;memcpy(&u,&y,4);"
         "printf(\"%u\\n\",u);}return 0;}\n")
     exe = tmp_path / "rsq"
@@ -390,6 +491,24 @@ def test_rsqrtss_table_is_the_cpus(tmp_path):
     np.testing.assert_array_equal(table.view(np.uint32),
                                   np.array(out, np.uint32))
     assert rx.occupied_weight(0) == rx.occupied_weight(1) == F32(20)
+
+
+@pytest.mark.parametrize("K", [259, 515, 1027, 2051, 4099])
+def test_gram_and_gemv_bit_equal_to_xla(K):
+    """XLA's J^T J and J^T r with J^T laid out (3, K) as in the compiled
+    refinement, K = N + 3 rows, against the plain version's chains: one
+    FMA chain per entry, and the eight-lane gemv."""
+    rng = np.random.default_rng(K)
+    gram = jax.jit(lambda jt: jt @ jt.T)
+    gemv = jax.jit(lambda jt, r: jt @ r)
+    for _ in range(4):
+        J = (rng.standard_normal((K, 3))
+             * np.exp(rng.uniform(-3, 3, (K, 1)))).astype(F32)
+        r = rng.standard_normal(K).astype(F32)
+        jt = np.ascontiguousarray(J.T)
+        np.testing.assert_array_equal(np.asarray(gram(jt)), rx._gram(J))
+        np.testing.assert_array_equal(np.asarray(gemv(jt, r)),
+                                      rx._gemv(J, r))
 
 
 def test_fma32_rounds_once():
