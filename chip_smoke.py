@@ -60,17 +60,32 @@ their failures fail it after the kernels line):
    beam count), whose queries the callers pad up to N = 4096; held in
    full against data/sim-office-beams60.*, with the refinement
    launches by N.
-9. blocked -- the keyframe-partitioned pose-graph solver on the card on
+9. joint  -- as phase 6 on a copy of sim-office whose slam.yaml sets
+   final_joint: true (final_cleanup ends with the joint landmark + pose
+   solve, Backend.joint_solve), held in full against
+   data/sim-office-joint.*, with the joint solves' seconds, sizes and
+   LM iterations and the final cleanup's seconds.
+10. marginal -- as phase 6 with chain_info_mode: marginal (chain edges
+   carry Frontend.relative_chain_info), held in full against
+   data/sim-office-marginal.*.
+11. blocked -- the keyframe-partitioned pose-graph solver on the card on
    synthetic chains of 2k and 16k poses (BLOCKED_CASES), against the
    float64 C++ solver on the host at the same iteration count and, at
    2k, against the dense solver on the card; GN iterations/s of both.
-10. killian -- the full runner on sim-killian (2626 frames, a pose graph
+12. joint_solver -- optimize_joint_graph on the card on seeded graphs at
+   sim-office's and sim-killian's joint-solve sizes (JOINT_CASES; P =
+   512 and 2048 padded poses), against the same solve on the CPU
+   (JOINT_ATOL, JOINT_CHI2_RTOL, the same LM iterations); ms per
+   iteration and per solve.
+13. killian -- the full runner on sim-killian (2626 frames, a pose graph
    padded to 2048) on cuda, as phase 6, with every pose-graph solve
    recorded: from dist_solver_min_poses padded poses up each must take
    the blocked solver and agree with the C++ solver on its graph; held
    in full but for the two printed numbers WORLDS exempts.
-11. world  -- with --all-worlds, sim-loops and sim-corridor as phase 6.
-12. kernels -- one line per hand-written kernel: launches in the main
+14. world  -- with --all-worlds, sim-loops and sim-corridor as phase 6,
+   and sim-office with algorithm: smf and algorithm: hough (phases smf
+   and hough, held against data/sim-office-{smf,hough}.*).
+15. kernels -- one line per hand-written kernel: launches in the main
    path's run (the sim-killian run; launches_by_path has every run),
    error against the plain version, its time, the plain version's
    time and the least time the card could take, summed over that
@@ -105,8 +120,11 @@ from sparse_gslam_tpu_torch.eval.synthetic_graphs import (
     make_chain_graph,
     to_pose_graph,
 )
+from sparse_gslam_tpu_torch.interop import joint_graph_from_numpy
 from sparse_gslam_tpu_torch.io.native import posegraph_gn_native
 from sparse_gslam_tpu_torch.models.backend import SubmapLoopCloser
+from sparse_gslam_tpu_torch.models.frontend import Frontend
+from sparse_gslam_tpu_torch.models.slam import SlamSystem
 from sparse_gslam_tpu_torch.ops import grid as grid_mod
 from sparse_gslam_tpu_torch.ops import grid_cuda, refine_cuda
 from sparse_gslam_tpu_torch.ops import matching as matching_mod
@@ -119,6 +137,8 @@ from sparse_gslam_tpu_torch.ops.grid import (
     precompute_pyramid,
     submap_insert_args,
 )
+from sparse_gslam_tpu_torch.ops.line_geometry import transform_line
+from sparse_gslam_tpu_torch.utils import se2
 from sparse_gslam_tpu_torch.utils.se2 import wrap_angle
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -201,6 +221,75 @@ WORLDS = {
                    "local_edges": 28, "kf_pins": 48},
         "launches": {"precompute": 52, "rebuild_grids": 52, "map": 1},
     },
+    # sim-office with one option of the JAX package's config added to
+    # slam.yaml; the options are off by default because they measured
+    # worse (utils/config.py), and the port reproduces them
+    "sim-office-joint": {
+        # final_cleanup ends with the joint landmark + pose solve
+        "dataset": "sim-office",
+        "slam_yaml": {"final_joint": "true"},
+        "reference": "sim-office-joint",
+        "ate": "ATE trans 0.0989 +- 0.1036 m, rot 0.788 +- 0.665 deg "
+               "(391 relations)",
+        "backend": "backend: 26 submaps, 6 closures (0 pruned)",
+        "closures": "closures: precision 1.00 (6/6 true), ridge-aware "
+                    "precision 1.00 (6/6), recall 1.00 (2/2 revisit "
+                    "segments detected)",
+        "counts": {"frames": 663, "keyframes": 286, "landmarks": 90,
+                   "submaps": 26, "loop_closures": 6, "pruned": 0,
+                   "local_edges": 15, "kf_pins": 4},
+        "launches": {"precompute": 52, "rebuild_grids": 52, "map": 1},
+        "joint": True,
+    },
+    "sim-office-marginal": {
+        # chain edges carry the landmark-posterior marginal information
+        "dataset": "sim-office",
+        "slam_yaml": {"chain_info_mode": "marginal"},
+        "reference": "sim-office-marginal",
+        "ate": "ATE trans 0.1382 +- 0.1524 m, rot 0.971 +- 0.778 deg "
+               "(391 relations)",
+        "backend": "backend: 26 submaps, 5 closures (1 pruned)",
+        "closures": "closures: precision 1.00 (5/5 true), ridge-aware "
+                    "precision 1.00 (5/5), recall 1.00 (2/2 revisit "
+                    "segments detected)",
+        "counts": {"frames": 663, "keyframes": 286, "landmarks": 90,
+                   "submaps": 26, "loop_closures": 5, "pruned": 1,
+                   "local_edges": 15, "kf_pins": 3},
+        "launches": {"precompute": 52, "rebuild_grids": 52, "map": 1},
+        "marginal": True,
+    },
+    "sim-office-smf": {
+        # the fuzzy split-merge line extractor (ops/lines_smf.py)
+        "dataset": "sim-office",
+        "slam_yaml": {"algorithm": "smf"},
+        "reference": "sim-office-smf",
+        "ate": "ATE trans 0.1576 +- 0.1902 m, rot 1.145 +- 0.950 deg "
+               "(391 relations)",
+        "backend": "backend: 26 submaps, 5 closures (0 pruned)",
+        "closures": "closures: precision 1.00 (5/5 true), ridge-aware "
+                    "precision 1.00 (5/5), recall 1.00 (2/2 revisit "
+                    "segments detected)",
+        "counts": {"frames": 663, "keyframes": 286, "landmarks": 63,
+                   "submaps": 26, "loop_closures": 5, "pruned": 0,
+                   "local_edges": 18, "kf_pins": 6},
+        "launches": {"precompute": 52, "rebuild_grids": 52, "map": 1},
+    },
+    "sim-office-hough": {
+        # the Hough-transform line extractor (ops/lines_hough.py)
+        "dataset": "sim-office",
+        "slam_yaml": {"algorithm": "hough"},
+        "reference": "sim-office-hough",
+        "ate": "ATE trans 0.1441 +- 0.1762 m, rot 1.247 +- 1.021 deg "
+               "(391 relations)",
+        "backend": "backend: 26 submaps, 5 closures (1 pruned)",
+        "closures": "closures: precision 1.00 (5/5 true), ridge-aware "
+                    "precision 1.00 (5/5), recall 1.00 (2/2 revisit "
+                    "segments detected)",
+        "counts": {"frames": 663, "keyframes": 286, "landmarks": 37,
+                   "submaps": 26, "loop_closures": 5, "pruned": 1,
+                   "local_edges": 14, "kf_pins": 12},
+        "launches": {"precompute": 52, "rebuild_grids": 52, "map": 1},
+    },
     "sim-killian": {
         "ate": "ATE trans 0.1862 +- 0.2625 m, rot 0.648 +- 0.573 deg "
                "(1963 relations)",
@@ -257,6 +346,26 @@ BLOCKED_ITERS = 40
 DENSE_ITERS = 120
 BLOCKED_NATIVE_ATOL = 1e-8
 BLOCKED_DENSE_ATOL = 1e-8
+# the joint_solver phase: seeded joint graphs at the sizes of the
+# final joint solve of sim-office (P = 512 padded poses) and of
+# sim-killian (P = 2048), their live counts read from the JAX package's
+# CPU runs with final_joint: true (SLAM_DUMP_JOINT): poses, landmarks,
+# observation edges and closure edges, each live and padded
+JOINT_CASES = {
+    "office": dict(n=286, P=512, n_lms=90, L=128, e_live=745, E=1024,
+                   c_live=25, C=32),
+    "killian": dict(n=1262, P=2048, n_lms=256, L=256, e_live=2981,
+                    E=4096, c_live=95, C=128),
+}
+# the card's joint solve against the port's on this machine's CPU, both
+# float64 from the same graph (m/rad; chi2 relative): cuSOLVER's and
+# LAPACK's Cholesky and cuBLAS's and the CPU's DGEMM round otherwise,
+# a few ulps per operation on systems of condition ~1e6
+JOINT_ATOL = 1e-8
+JOINT_CHI2_RTOL = 1e-9
+# the backend's DCS phi (slam.yaml dcs_phi) and final_joint_iterations
+JOINT_PHI = 10.0
+JOINT_ITERS = 12
 # every blocked solve of a full run against the float64 C++ solver on
 # the same graph, both 20 iterations from the backend's warm start
 # (sim-killian's solves: <= 1.1e-12 on a CPU, scripts/pair_run.py;
@@ -1303,6 +1412,70 @@ class SolveRecorder:
         }
 
 
+class CleanupRecorder:
+    """Wraps SlamSystem.final_cleanup, SubmapLoopCloser.joint_solve and
+    Frontend.relative_chain_info to keep the final cleanup's seconds,
+    each joint solve's seconds (the card synchronized before and
+    after), sizes and LM iterations (SchurCounter), and the number of
+    marginal chain-information calls."""
+
+    def __init__(self):
+        self.cleanup_s = None
+        self.joint = []
+        self.chain_info_calls = 0
+
+    def _cleanup(self, fn):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                self.cleanup_s = time.perf_counter() - t0
+        return wrapped
+
+    def _joint(self, fn):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with SchurCounter().active() as count:
+                ran = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.joint.append({"ran": ran, "s": time.perf_counter() - t0,
+                               "iterations": count.calls,
+                               "sizes": count.sizes})
+            return ran
+        return wrapped
+
+    def _chain_info(self, fn):
+        def wrapped(*a, **k):
+            self.chain_info_calls += 1
+            return fn(*a, **k)
+        return wrapped
+
+    @contextlib.contextmanager
+    def active(self):
+        saved = (SlamSystem.final_cleanup, SubmapLoopCloser.joint_solve,
+                 Frontend.relative_chain_info)
+        SlamSystem.final_cleanup = self._cleanup(saved[0])
+        SubmapLoopCloser.joint_solve = self._joint(saved[1])
+        Frontend.relative_chain_info = self._chain_info(saved[2])
+        try:
+            yield self
+        finally:
+            (SlamSystem.final_cleanup, SubmapLoopCloser.joint_solve,
+             Frontend.relative_chain_info) = saved
+
+
+def graph_sizes(g):
+    """Padded and live sizes of a JointGraphData."""
+    return {"P": g.poses.shape[0], "L": g.lms.shape[0],
+            "E": g.obs_pose.shape[0], "C": g.clo_i.shape[0],
+            "poses": int(g.pose_valid.sum()), "lms": int(g.lm_valid.sum()),
+            "edges": int(g.obs_valid.sum()),
+            "closures": int(g.clo_valid.sum())}
+
+
 def set_slam_yaml(path, values):
     """Set each `key: value` of `values` in the dataset config at `path`:
     its line rewritten where the config has one, appended otherwise."""
@@ -1338,6 +1511,7 @@ def phase_full(world, phase, out_dir):
         rec = InsertRecorder()
         solves = SolveRecorder()
         refines = RefineRecorder()
+        cleanup = CleanupRecorder()
         tee = Tee(sys.stdout)
         os.environ["SLAM_LOG_MATCHES"] = "1"
         grid_cuda.insert_rays_cuda.launches = 0
@@ -1345,7 +1519,7 @@ def phase_full(world, phase, out_dir):
         t0 = time.perf_counter()
         try:
             with rec.active(), solves.active(), refines.active(), \
-                    contextlib.redirect_stdout(tee):
+                    cleanup.active(), contextlib.redirect_stdout(tee):
                 r = runner.run([
                     "--dataset-dir", data, "--dataset-name", dataset,
                     "--eval", "--map-png", png, "--device", "cuda",
@@ -1423,6 +1597,15 @@ def phase_full(world, phase, out_dir):
                             f"{solve_info['blocked_max_abs_err_native']}")
         if not os.path.getsize(png):
             problems.append("empty map PNG")
+        if ref.get("joint") and not (cleanup.joint
+                                     and all(j["ran"] for j in cleanup.joint)):
+            problems.append(f"final_joint: the joint solve did not run "
+                            f"({cleanup.joint})")
+        if not ref.get("joint") and cleanup.joint:
+            problems.append("a joint solve ran without final_joint")
+        if bool(ref.get("marginal")) != bool(cleanup.chain_info_calls):
+            problems.append(f"{cleanup.chain_info_calls} marginal "
+                            f"chain-information calls")
         emit({
             "phase": phase, **cmp, **counts,
             "kernel_launches": launches, "launches_by_phase": by_phase,
@@ -1435,6 +1618,12 @@ def phase_full(world, phase, out_dir):
             "problems": problems,
             **solve_info,
             "frame_loop_s": r.wall_s, "fps": r.n_frames / r.wall_s,
+            "final_cleanup_s": cleanup.cleanup_s,
+            "joint_solves": cleanup.joint,
+            "joint_ms_per_iteration": [
+                1e3 * j["s"] / j["iterations"] for j in cleanup.joint
+                if j["iterations"]],
+            "chain_info_calls": cleanup.chain_info_calls,
             "total_s": total_s,
             "frontend_mean_ms": float(ft.mean() * 1e3),
             "frontend_max_ms": float(ft.max() * 1e3),
@@ -1524,6 +1713,185 @@ def phase_blocked():
     return rows
 
 
+def joint_case(n, P, n_lms, L, e_live, E, c_live, C, seed=0):
+    """A seeded joint graph (numpy fields, JointGraphData layout) shaped
+    as a final joint solve: n live poses of P driving four laps of a
+    3:2 rectangle at 0.25 m a step, started 5 cm / 0.01 rad off the
+    truth as the pose-graph solution warm-starts it, raw odometry
+    between them; n_lms lines outside the rectangle (so no pose crosses
+    one), each seen from several poses, e_live observation edges in
+    all; c_live closures between the laps, two of them gross outliers
+    for DCS. Informations are of the sizes sim-killian's joint solve
+    carries (odometry ~diag(100, 300, 800), observations ~diag(120,
+    310), closures ~diag(90, 90, 600)). Padded slots point at index 0,
+    as the backend pads."""
+    r = np.random.default_rng(seed)
+    lap = n // 4
+    perim = 0.25 * lap
+    w, h = 0.3 * perim, 0.2 * perim
+
+    def on_rect(s):
+        s = s % perim
+        for length, (x0, y0), th in ((w, (0.0, 0.0), 0.0),
+                                      (h, (w, 0.0), np.pi / 2),
+                                      (w, (w, h), np.pi),
+                                      (h, (0.0, h), -np.pi / 2)):
+            if s < length:
+                return np.array([x0 + s * np.cos(th), y0 + s * np.sin(th),
+                                 th])
+            s -= length
+        raise AssertionError(s)
+
+    gt = np.stack([on_rect(0.25 * i) - [w / 2, h / 2, 0.0]
+                   for i in range(n)])
+    # lines with rho 20-40 m from the centre: outside the rectangle
+    lms_gt = np.stack([r.uniform(20.0, 40.0, n_lms),
+                       r.uniform(-np.pi, np.pi, n_lms)], 1)
+    f = dict(
+        poses=np.zeros((P, 3)), pose_valid=np.arange(P) < n,
+        pose_fixed=np.arange(P) == 0, odom_meas=np.zeros((P, 3)),
+        odom_info=np.tile(np.eye(3), (P, 1, 1)),
+        odom_valid=(np.arange(P) > 0) & (np.arange(P) < n),
+        lms=np.zeros((L, 2)), lm_valid=np.arange(L) < n_lms,
+        obs_pose=np.zeros(E, np.int64), obs_lm=np.zeros(E, np.int64),
+        obs_meas=np.zeros((E, 2)), obs_info=np.tile(np.eye(2), (E, 1, 1)),
+        obs_valid=np.arange(E) < e_live,
+        clo_i=np.zeros(C, np.int64), clo_j=np.zeros(C, np.int64),
+        clo_meas=np.zeros((C, 3)), clo_info=np.tile(np.eye(3), (C, 1, 1)),
+        clo_valid=np.arange(C) < c_live,
+    )
+    f["poses"][:n] = gt + r.normal(0, 1, (n, 3)) * [0.05, 0.05, 0.01]
+    f["poses"][0] = gt[0]
+    f["poses"][:, 2] = wrap_angle(f["poses"][:, 2])
+    for i in range(1, n):
+        f["odom_meas"][i] = se2.relative(gt[i - 1], gt[i]) + r.normal(
+            0, 1, 3) * [0.02, 0.02, 0.005]
+        f["odom_info"][i] = np.diag([100.0, 300.0, 800.0])
+    f["lms"][:n_lms] = lms_gt + r.normal(0, 1, lms_gt.shape) * [0.05, 0.005]
+    # each pose sees a run of landmarks that moves along the path, so
+    # every landmark is seen from a stretch of poses
+    per_pose = np.full(n, e_live // n)
+    per_pose[: e_live % n] += 1
+    k = 0
+    for i in range(n):
+        first = (i * n_lms) // n
+        for j in range(per_pose[i]):
+            m = (first + 3 * j) % n_lms
+            inv = se2.inverse(gt[i])
+            f["obs_pose"][k], f["obs_lm"][k] = i, m
+            f["obs_meas"][k] = np.asarray(transform_line(
+                lms_gt[m], inv[:2], inv[2])) + r.normal(0, 1, 2) * [0.01,
+                                                                    0.002]
+            f["obs_info"][k] = np.diag([120.0, 310.0])
+            k += 1
+    for c in range(c_live):
+        i = int(r.integers(0, n - lap))
+        j = i + lap * int(r.integers(1, max(2, (n - i) // lap)))
+        j = min(j, n - 1)
+        f["clo_i"][c], f["clo_j"][c] = i, j
+        f["clo_meas"][c] = se2.relative(gt[i], gt[j]) + r.normal(
+            0, 1, 3) * [0.01, 0.01, 0.002]
+        if c < 2:
+            f["clo_meas"][c] += [1.5, -1.0, 0.5]
+        f["clo_info"][c] = np.diag([90.0, 90.0, 600.0])
+    return f
+
+
+class SchurCounter:
+    """Counts ops/solvers._joint_schur_solve calls (one per LM iteration
+    of optimize_joint_graph) and keeps the sizes of the graph solved."""
+
+    def __init__(self):
+        self.calls = 0
+        self.sizes = None
+        self._orig = solvers_mod._joint_schur_solve
+
+    def _count(self, g, *a, **k):
+        self.calls += 1
+        self.sizes = self.sizes or graph_sizes(g)
+        return self._orig(g, *a, **k)
+
+    @contextlib.contextmanager
+    def active(self):
+        solvers_mod._joint_schur_solve = self._count
+        try:
+            yield self
+        finally:
+            solvers_mod._joint_schur_solve = self._orig
+
+
+def timed_joint_solve(g, iterations, rtol):
+    """(g_opt, chi2, seconds, LM iterations) of one optimize_joint_graph
+    (the card synchronized before and after where g is on it)."""
+    sync = torch.cuda.synchronize if g.poses.is_cuda else (lambda: None)
+    count = SchurCounter()
+    with count.active():
+        sync()
+        t0 = time.perf_counter()
+        out, chi2 = solvers_mod.optimize_joint_graph(
+            g, JOINT_PHI, iterations, rtol=rtol)
+        sync()
+        secs = time.perf_counter() - t0
+    return out, chi2, secs, count.calls
+
+
+def phase_joint_solver():
+    """optimize_joint_graph on the card on seeded graphs at the sizes of
+    sim-office's and sim-killian's final joint solves (JOINT_CASES),
+    against the same solve on this machine's CPU (float64 both):
+    poses and landmarks within JOINT_ATOL, chi2 within
+    JOINT_CHI2_RTOL, the same number of LM iterations. Times the
+    default solve (12 iterations at most, rtol 1e-9) and 12 iterations
+    without the early stop; ms per iteration and per solve."""
+    rows = []
+    for name, size in JOINT_CASES.items():
+        f = joint_case(**size)
+        g_cuda = joint_graph_from_numpy(f, "cuda")
+        g_cpu = joint_graph_from_numpy(f, "cpu")
+        timed_joint_solve(g_cuda, 2, 1e-9)  # warm-up
+        reps = [timed_joint_solve(g_cuda, JOINT_ITERS, 1e-9)
+                for _ in range(3)]
+        out, chi2, _, iters = reps[0]
+        fixed = [timed_joint_solve(g_cuda, JOINT_ITERS, 0.0)
+                 for _ in range(2)]
+        ref, ref_chi2, cpu_s, cpu_iters = timed_joint_solve(
+            g_cpu, JOINT_ITERS, 1e-9)
+        chi2_0 = float(solvers_mod.joint_graph_chi2(g_cpu, JOINT_PHI))
+        err_poses = float((out.poses.cpu() - ref.poses).abs().max())
+        err_lms = float((out.lms.cpu() - ref.lms).abs().max())
+        chi2_rel = abs(float(chi2) - float(ref_chi2)) / abs(float(ref_chi2))
+        row = {
+            "phase": "joint_solver", "case": name, **graph_sizes(g_cpu),
+            "iterations": iters, "cpu_iterations": cpu_iters,
+            "ms_per_solve": 1e3 * min(r[2] for r in reps),
+            "ms_per_solve_reps": [1e3 * r[2] for r in reps],
+            "ms_per_iteration": 1e3 * min(r[2] / r[3] for r in reps),
+            "fixed_iterations": [r[3] for r in fixed],
+            "ms_per_iteration_fixed": 1e3 * min(r[2] / r[3] for r in fixed),
+            "cpu_s_per_solve": cpu_s,
+            "chi2_start": chi2_0, "chi2": float(chi2),
+            "chi2_cpu": float(ref_chi2), "chi2_rel_err": chi2_rel,
+            "max_abs_err_poses": err_poses, "max_abs_err_lms": err_lms,
+            "atol": JOINT_ATOL, "chi2_rtol": JOINT_CHI2_RTOL,
+        }
+        emit(row)
+        problems = []
+        if not (err_poses <= JOINT_ATOL and err_lms <= JOINT_ATOL
+                and chi2_rel <= JOINT_CHI2_RTOL):
+            problems.append(f"card vs CPU: poses {err_poses}, lms "
+                            f"{err_lms}, chi2 {chi2_rel}")
+        if iters != cpu_iters:
+            problems.append(f"{iters} LM iterations on the card, "
+                            f"{cpu_iters} on the CPU")
+        if not float(chi2) < chi2_0:
+            problems.append(f"chi2 {float(chi2)} not below {chi2_0}")
+        if problems:
+            raise AssertionError(f"joint solver ({name}): "
+                                 + "; ".join(problems))
+        rows.append(row)
+    return rows
+
+
 def time_run_calls(calls):
     """The kernel, its plain twin and the bound, each summed over the
     main path's insertions (device ms; the plain twin once per call)."""
@@ -1544,7 +1912,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(REPO, "smoke_out"))
     ap.add_argument("--all-worlds", action="store_true",
-                    help="also run sim-loops and sim-corridor in full")
+                    help="also run sim-loops, sim-corridor and sim-office "
+                         "with the smf and hough extractors in full")
     args = ap.parse_args()
     t_start = time.perf_counter()
     os.makedirs(args.out, exist_ok=True)
@@ -1573,13 +1942,22 @@ def main() -> int:
                                 "sim-office-refine1", "refine_map",
                                 args.out),
             "beams60": timed("beams60", phase_full, "sim-office-beams60",
-                             "beams60", args.out)}
+                             "beams60", args.out),
+            "joint": timed("joint", phase_full, "sim-office-joint", "joint",
+                           args.out),
+            "marginal": timed("marginal", phase_full, "sim-office-marginal",
+                              "marginal", args.out)}
     timed("blocked", phase_blocked)
+    timed("joint_solver", phase_joint_solver)
     runs["killian"] = timed("killian", phase_full, "sim-killian", "killian",
                             args.out)
     if args.all_worlds:
         for world in ("sim-loops", "sim-corridor"):
             runs[world] = timed(world, phase_full, world, "world", args.out)
+        for algorithm in ("smf", "hough"):
+            runs[algorithm] = timed(algorithm, phase_full,
+                                    f"sim-office-{algorithm}", algorithm,
+                                    args.out)
     failed = [p for r in runs.values() for p in r["problems"]]
     killian = runs["killian"]
     ms, plain_ms, bound_ms, bound_by, err = timed(

@@ -2,10 +2,15 @@
 
     python scripts/compare_world_run.py WORLD LOG RESULT
 
-WORLD is one of chip_smoke.py's WORLDS (sim-office, sim-killian,
-sim-loops, sim-corridor); LOG is the run's standard output under
-SLAM_LOG_MATCHES=1 (python -m sparse_gslam_tpu_torch.runner
---dataset-dir <copy of datasets/WORLD> --dataset-name WORLD --eval
+WORLD is one of chip_smoke.py's WORLDS: sim-office, sim-killian,
+sim-loops, sim-corridor, or a copy of sim-office with one line added to
+its slam.yaml: sim-office-refine1 (final_refine_rounds: 1),
+sim-office-beams60 (scan_size: 60, multicloud_size: 960),
+sim-office-joint (final_joint: true), sim-office-marginal
+(chain_info_mode: marginal), sim-office-smf (algorithm: smf) or
+sim-office-hough (algorithm: hough). LOG is the run's standard output
+under SLAM_LOG_MATCHES=1 (python -m sparse_gslam_tpu_torch.runner
+--dataset-dir <copy of the dataset> --dataset-name <dataset> --eval
 ...); RESULT is the .result it wrote. Prints chip_smoke.compare_run's
 readings as one JSON line (the decision lines counted, not listed).
 Needs no GPU.

@@ -11,7 +11,9 @@ occupancy-grid ray insertion is a hand-written CUDA kernel
 
 Ported so far: the runner with and without the loop-closing backend
 (the JAX package's CPU branch: submaps, pruned correlative matcher,
-per-keyframe pins, chain edges, DCS pose graph), its `.result`
+per-keyframe pins, chain edges, DCS pose graph, refine_map, the final
+joint landmark + pose solve, the marginal chain information), the smc,
+smf and hough line extractors, the six log providers, its `.result`
 trajectory, relations ATE, closure precision/recall and the global
 occupancy map. What is left is listed in ROADMAP.md.
 """

@@ -5,7 +5,7 @@ landmark graph, the pose graph and the occupancy grid. The JAX side
 converts its arrays with `np.asarray`; these functions build the port's
 tensors from them. The frontend uses `lm_graph_from_numpy` for its own
 per-keyframe graph, the backend `pose_graph_from_numpy` for every
-pose-graph solve.
+pose-graph solve and `joint_graph_from_numpy` for the final joint solve.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from .ops.grid import SubmapGrid
-from .ops.solvers import LMGraphData, PoseGraphData
+from .ops.solvers import JointGraphData, LMGraphData, PoseGraphData
 
 _FLOAT_FIELDS = ("poses", "odom_meas", "odom_info", "lms", "obs_meas",
                  "obs_info")
@@ -64,6 +64,24 @@ def pose_graph_from_numpy(fields: dict, device) -> PoseGraphData:
         **_packed(fields, _PG_BOOL_FIELDS, np.bool_, device),
     }
     return PoseGraphData(**{k: t[k] for k in PoseGraphData._fields})
+
+
+_JOINT_FLOAT_FIELDS = _FLOAT_FIELDS + ("clo_meas", "clo_info")
+_JOINT_INDEX_FIELDS = _INDEX_FIELDS + ("clo_i", "clo_j")
+_JOINT_BOOL_FIELDS = _BOOL_FIELDS + ("clo_valid",)
+
+
+def joint_graph_from_numpy(fields: dict, device) -> JointGraphData:
+    """Build the port's JointGraphData from the fields of a JAX
+    JointGraphData (or the backend's host arrays), given as numpy
+    arrays by name: float64, int64 indices and bool masks on `device`,
+    in three host-to-device copies."""
+    t = {
+        **_packed(fields, _JOINT_FLOAT_FIELDS, np.float64, device),
+        **_packed(fields, _JOINT_INDEX_FIELDS, np.int64, device),
+        **_packed(fields, _JOINT_BOOL_FIELDS, np.bool_, device),
+    }
+    return JointGraphData(**{k: t[k] for k in JointGraphData._fields})
 
 
 def grid_from_numpy(probs, origin, resolution, device) -> SubmapGrid:

@@ -23,11 +23,11 @@ Port of sparse_gslam_tpu/models/backend.py, its CPU branch:
 
 Grids, the matcher, the refinement and the pose-graph solve run on
 `device`; what the JAX package computes in numpy stays numpy on the
-host. Not ported (ROADMAP.md): the accelerator branch (fused matcher,
-device pin batches), joint_solve, the sharded (multi-device)
-pose-graph solver, the marginal chain information and the ground-truth
-diagnostics. A configuration that asks for one of them is
-refused with NotImplementedError.
+host. final_cleanup may end with joint_solve, the joint landmark +
+pose bundle adjustment (ops/solvers.optimize_joint_graph) on `device`.
+Not ported (ROADMAP.md): the accelerator branch (fused matcher, device
+pin batches), the sharded (multi-device) pose-graph solver and the
+ground-truth diagnostics; no configuration selects them on this path.
 """
 from __future__ import annotations
 
@@ -40,28 +40,15 @@ import time as _time
 import numpy as np
 import torch
 
-from ..interop import pose_graph_from_numpy
+from ..interop import joint_graph_from_numpy, pose_graph_from_numpy
 from ..ops import matching, solvers
 from ..ops.grid import GridSpec, build_submap_grid, precompute_pyramid
+from ..ops.line_geometry import transform_line
 from ..parallel import dist_solver
 from ..utils import se2
 from ..utils.config import SlamConfig
 from .frontend import Frontend, _bucket
 from .range_data import construct_multicloud
-
-
-def _refuse_unported(cfg: SlamConfig) -> None:
-    """Raise for options whose code is not ported (never take another
-    path silently)."""
-    asks = []
-    if cfg.final_joint:
-        asks.append("final_joint (joint_solve)")
-    if cfg.chain_info_mode == "marginal":
-        asks.append("chain_info_mode='marginal' (relative_chain_info)")
-    if asks:
-        raise NotImplementedError(
-            "not ported yet (ROADMAP.md, queue 1): " + ", ".join(asks)
-        )
 
 
 def _host(*tensors):
@@ -134,7 +121,6 @@ class Closure:
 class SubmapLoopCloser:
     def __init__(self, config: SlamConfig, frontend: Frontend,
                  device="cuda"):
-        _refuse_unported(config)
         self.config = config
         self.frontend = frontend
         self.device = torch.device(device)
@@ -660,17 +646,28 @@ class SubmapLoopCloser:
         """Extend the pose-graph chain to the CURRENT keyframe count and
         prune the landmark-graph window to one fixed pose
         (submap_loop_closer.cpp:204-225, 256-270). Called at closure
-        apply and at final cleanup."""
+        apply and at final cleanup. Each chain edge carries raw
+        odometry information, or with chain_info_mode="marginal" the
+        landmark-posterior marginal (frontend.relative_chain_info)
+        where there is one."""
         self._ensure_pg_init()
         if not self.pg_poses:
             return
         kfs = self.frontend.keyframes
         est = self.frontend.estimates()
         n = len(kfs)
+        marg = {}
+        if (
+            self.config.chain_info_mode == "marginal"
+            and n > self.last_opt_pose_index
+        ):
+            marg = self.frontend.relative_chain_info(
+                self.last_opt_pose_index, n
+            )
         for idx in range(self.last_opt_pose_index, n):
             meas = se2.relative(est[idx - 1], est[idx])
             self.pg_meas.append(meas)
-            self.pg_info.append(kfs[idx].odom_info.copy())
+            self.pg_info.append(marg.get(idx, kfs[idx].odom_info).copy())
             self.pg_poses.append(se2.compose(self.pg_poses[-1], meas))
         if n > self.last_opt_pose_index:
             self.last_opt_pose_index = n
@@ -1328,3 +1325,99 @@ class SubmapLoopCloser:
                 if c.kind == "loop":
                     self.false_closures += 1
         return pruned
+
+    # --------------------------------------------------------------------
+    def joint_solve(self) -> bool:
+        """Final joint landmark + pose bundle adjustment
+        (solvers.optimize_joint_graph; no reference counterpart: the
+        reference finishes pose-graph-only, log_runner.cpp:203-205).
+
+        Uses every original measurement: raw odometry between keyframes
+        (kf.odom_meas/odom_info), every archived and active line-landmark
+        observation edge, and the vetted closure/chain/pin edges with
+        DCS. Each landmark is re-initialized from its median observation
+        at the current pose estimate (the frontend's landmark frame
+        drifts from the map frame across prunes). Warm-started from the
+        pose-graph solution. Returns True if it ran (and wrote back
+        pg_poses and the frontend's landmark estimates); it runs only
+        once the chain reaches every keyframe."""
+        cfg = self.config
+        kfs = self.frontend.keyframes
+        n = len(self.pg_poses)
+        if n < 2 or n != len(kfs):
+            return False
+        edges = [
+            e
+            for e in (self.frontend.archived_obs + self.frontend.obs_edges)
+            if e.pose_idx < n
+        ]
+        if not edges:
+            return False
+        lm_map = {}
+        by_lm: dict[int, list] = {}
+        for e in edges:
+            lm_map.setdefault(e.lm_idx, len(lm_map))
+            by_lm.setdefault(e.lm_idx, []).append(e)
+        closures = [
+            c
+            for c in self.closures
+            if c.active and not c.suppressed and c.i < n and c.j < n
+        ]
+        P = _bucket(n, cfg.bucket_min_pg)
+        L = _bucket(max(len(lm_map), 1), 64)
+        E = _bucket(max(len(edges), 1), 256)
+        C = _bucket(max(len(closures), 1))
+
+        f = dict(
+            poses=np.zeros((P, 3)), pose_valid=np.zeros(P, bool),
+            pose_fixed=np.zeros(P, bool), odom_meas=np.zeros((P, 3)),
+            odom_info=np.tile(np.eye(3), (P, 1, 1)),
+            odom_valid=np.zeros(P, bool),
+            lms=np.zeros((L, 2)), lm_valid=np.zeros(L, bool),
+            obs_pose=np.zeros(E, np.int64), obs_lm=np.zeros(E, np.int64),
+            obs_meas=np.zeros((E, 2)), obs_info=np.tile(np.eye(2), (E, 1, 1)),
+            obs_valid=np.zeros(E, bool),
+            clo_i=np.zeros(C, np.int64), clo_j=np.zeros(C, np.int64),
+            clo_meas=np.zeros((C, 3)), clo_info=np.tile(np.eye(3), (C, 1, 1)),
+            clo_valid=np.zeros(C, bool),
+        )
+        f["poses"][:n] = np.stack(self.pg_poses)
+        f["pose_valid"][:n] = True
+        f["pose_fixed"][0] = True
+        for i in range(1, n):
+            f["odom_meas"][i] = kfs[i].odom_meas
+            f["odom_info"][i] = kfs[i].odom_info
+            f["odom_valid"][i] = True
+        # the world line of the median observation under the current
+        # pose estimate
+        for lid, k in lm_map.items():
+            les = by_lm[lid]
+            e = les[len(les) // 2]
+            pose = f["poses"][e.pose_idx]
+            f["lms"][k] = np.asarray(transform_line(e.meas, pose[:2], pose[2]))
+            f["lm_valid"][k] = True
+        for k, e in enumerate(edges):
+            f["obs_pose"][k] = e.pose_idx
+            f["obs_lm"][k] = lm_map[e.lm_idx]
+            f["obs_meas"][k] = e.meas
+            f["obs_info"][k] = e.info
+            f["obs_valid"][k] = True
+        for k, c in enumerate(closures):
+            f["clo_i"][k] = c.i
+            f["clo_j"][k] = c.j
+            f["clo_meas"][k] = c.meas
+            f["clo_info"][k] = c.info
+            f["clo_valid"][k] = True
+
+        g = joint_graph_from_numpy(f, self.device)
+        g_opt, _ = solvers.optimize_joint_graph(
+            g, cfg.dcs_phi, cfg.final_joint_iterations
+        )
+        new_poses, new_lms = _host(g_opt.poses, g_opt.lms)
+        for k in range(n):
+            self.pg_poses[k] = new_poses[k]
+        # keep the frontend's landmark estimates in the solved map frame
+        # (maps and diagnostics; associations are over)
+        for lid, k in lm_map.items():
+            self.frontend.landmarks[lid].rhotheta = new_lms[k]
+        return True

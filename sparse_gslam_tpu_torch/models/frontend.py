@@ -7,9 +7,9 @@ step is the fixed-shape LM solve of ops.solvers on the frontend's
 device. State is functional-by-copy: the chi^2 rejection gate
 (drone.cpp:161-189) is a snapshot restore instead of g2o push/pop, and
 g2o's pointer graph becomes masked arrays rebuilt per keyframe from
-compact host lists. Port of sparse_gslam_tpu/models/frontend.py,
-without relative_chain_info (only the backend's marginal chain-info
-mode calls it; ROADMAP.md).
+compact host lists. Port of sparse_gslam_tpu/models/frontend.py;
+relative_chain_info (the backend's marginal chain information) is host
+numpy float64 in both packages.
 """
 from __future__ import annotations
 
@@ -365,6 +365,186 @@ class Frontend:
         for lid, k in lm_map.items():
             self.landmarks[lid].rhotheta = new_lms[k].copy()
         return float(out[-2]), int(out[-1])
+
+    def relative_chain_info(
+        self, start_idx: int, end_idx: int, granularity: int = 6
+    ):
+        """Information matrices of the chain-edge measurements
+        rel(est[idx-1], est[idx]) for idx in [start_idx, end_idx),
+        from the landmark-graph posterior (new-engine capability; the
+        reference carries raw odometry information on every pose-graph
+        chain edge, submap_loop_closer.cpp:209-218).
+
+        Why: the chain measurement handed to the pose graph is the
+        landmark-LM-refined relative estimate, which is far better
+        than raw odometry wherever landmarks constrain the window
+        (measured on the sim worlds: actual chain error RMS 0.014 m
+        against a claimed raw-odometry sigma of 0.08-0.10 -- a 5-7x
+        under-confidence that makes the graph over-trust closures,
+        including corridor ridge aliases, relative to its excellent
+        chain; scripts/edge_budget.py). The honest information comes
+        from the marginal covariance of relative poses under the
+        current window's landmark graph: assemble the window GN
+        Hessian at the current estimates (odometry edges +
+        line-landmark observation edges, pose window_start fixed as
+        gauge) and invert. Landmark-starved stretches recover
+        ~raw-odometry information automatically (the marginal reduces
+        to the odom chain there).
+
+        Correlation handling (the part a naive per-edge marginal gets
+        wrong): consecutive chain edges share landmarks, so their
+        errors are POSITIVELY correlated -- per-edge marginals chained
+        independently under-claim the accumulated drift over a loop,
+        stiffening the chain until good closures fail the 11.345
+        chi2 prune (measured on sim-office: ATE 0.080 -> 0.150 with
+        per-edge marginals). Instead the span is cut into blocks of
+        `granularity` edges (~the landmark-visibility scale set by
+        landmark_max_dist); each block's endpoint-to-endpoint relative
+        marginal -- which DOES absorb all intra-block correlation --
+        is spread uniformly over its edges. Accumulation across blocks
+        is then approximately independent because blocks share few
+        landmarks. Validated against ATE + per-edge chi2 on all four
+        sim worlds (RESULTS.md round 4).
+
+        Host-side numpy float64 throughout: the window Hessian is a
+        few-hundred-dim dense matrix, and the call happens once per
+        closure apply, not per frame."""
+        ws = self.window_start
+        n = len(self.keyframes)
+        P = n - ws
+        if P < 2:
+            return {}
+        lm_map = self._active_lm_ids()
+        L = len(lm_map)
+        # variable layout: pose ws is the fixed gauge (no variables);
+        # poses ws+1..n-1 -> 3 vars each, then landmarks -> 2 vars each
+        D = 3 * (P - 1) + 2 * L
+        H = np.zeros((D, D))
+
+        def pvar(gi):  # global keyframe idx -> var offset or None
+            li = gi - ws
+            return None if li == 0 else 3 * (li - 1)
+
+        est = self.estimates()
+
+        def add_block(r, c, m):
+            H[r : r + m.shape[0], c : c + m.shape[1]] += m
+
+        # odometry edges (i-1 -> i) over the window
+        for gi in range(ws + 1, n):
+            kf = self.keyframes[gi]
+            xi, xj, z = est[gi - 1], est[gi], kf.odom_meas
+            ci, si = math.cos(xi[2]), math.sin(xi[2])
+            cz, sz = math.cos(z[2]), math.sin(z[2])
+            dx, dy = xj[0] - xi[0], xj[1] - xi[1]
+            m00 = cz * ci - sz * si
+            m01 = cz * si + sz * ci
+            m10 = -sz * ci - cz * si
+            m11 = -sz * si + cz * ci
+            g0 = -si * dx + ci * dy
+            g1 = -ci * dx - si * dy
+            Ji = np.array(
+                [
+                    [-m00, -m01, cz * g0 + sz * g1],
+                    [-m10, -m11, -sz * g0 + cz * g1],
+                    [0.0, 0.0, -1.0],
+                ]
+            )
+            Jj = np.array(
+                [[m00, m01, 0.0], [m10, m11, 0.0], [0.0, 0.0, 1.0]]
+            )
+            info = kf.odom_info
+            vi, vj = pvar(gi - 1), pvar(gi)
+            if vi is not None:
+                add_block(vi, vi, Ji.T @ info @ Ji)
+                add_block(vi, vj, Ji.T @ info @ Jj)
+                add_block(vj, vi, Jj.T @ info @ Ji)
+            add_block(vj, vj, Jj.T @ info @ Jj)
+
+        # line-landmark observation edges (the closed form of
+        # ops/solvers.rhotheta_edge_jacobians)
+        for e in self.obs_edges:
+            gp = e.pose_idx
+            if gp < ws:
+                continue
+            pose = est[gp]
+            lm = self.landmarks[e.lm_idx].rhotheta
+            c, s = math.cos(pose[2]), math.sin(pose[2])
+            x, y = pose[0], pose[1]
+            itx = -(c * x + s * y)
+            ity = s * x - c * y
+            theta_raw = se2.wrap_angle(lm[1] - pose[2])
+            nx, ny = math.cos(theta_raw), math.sin(theta_raw)
+            rho_raw = lm[0] + itx * nx + ity * ny
+            sigma = -1.0 if rho_raw < 0 else 1.0
+            dr_dx = -c * nx + s * ny
+            dr_dy = -s * nx - c * ny
+            dr_dthl = -itx * ny + ity * nx
+            Jp = np.array(
+                [[-sigma * dr_dx, -sigma * dr_dy, 0.0], [0.0, 0.0, 1.0]]
+            )
+            Jl = np.array([[-sigma, -sigma * dr_dthl], [0.0, -1.0]])
+            vp = pvar(gp)
+            vl = 3 * (P - 1) + 2 * lm_map[e.lm_idx]
+            info = e.info
+            if vp is not None:
+                add_block(vp, vp, Jp.T @ info @ Jp)
+                add_block(vp, vl, Jp.T @ info @ Jl)
+                add_block(vl, vp, Jl.T @ info @ Jp)
+            add_block(vl, vl, Jl.T @ info @ Jl)
+
+        # regularize: a landmark observed once along its line direction
+        # (or an all-endpoint-degenerate window) can leave H singular
+        H[np.diag_indices_from(H)] += 1e-9
+        try:
+            cov = np.linalg.inv(H)
+        except np.linalg.LinAlgError:
+            return {}
+
+        def pair_rel_cov(a, b):
+            """Marginal covariance of rel(est[a], est[b])."""
+            vi, vj = pvar(a), pvar(b)
+            S = np.zeros((6, 6))
+            if vi is not None:
+                S[:3, :3] = cov[vi : vi + 3, vi : vi + 3]
+                S[:3, 3:] = cov[vi : vi + 3, vj : vj + 3]
+                S[3:, :3] = cov[vj : vj + 3, vi : vi + 3]
+            S[3:, 3:] = cov[vj : vj + 3, vj : vj + 3]
+            xi, xj = est[a], est[b]
+            ci, si = math.cos(xi[2]), math.sin(xi[2])
+            dx, dy = xj[0] - xi[0], xj[1] - xi[1]
+            # d rel / d (xi, xj) at the current estimates
+            J = np.array(
+                [
+                    [-ci, -si, -si * dx + ci * dy, ci, si, 0.0],
+                    [si, -ci, -ci * dx - si * dy, -si, ci, 0.0],
+                    [0.0, 0.0, -1.0, 0.0, 0.0, 1.0],
+                ]
+            )
+            rc = J @ S @ J.T
+            rc = 0.5 * (rc + rc.T)
+            rc[np.diag_indices_from(rc)] += 1e-10
+            return rc
+
+        out = {}
+        s0 = max(start_idx, ws + 1)
+        g = max(1, granularity)
+        a = s0 - 1
+        while a < end_idx - 1:
+            b = min(a + g, end_idx - 1)
+            rc = pair_rel_cov(a, b)
+            # spread the block's (correlation-absorbing) endpoint
+            # covariance uniformly over its edges
+            per_edge = rc / float(b - a)
+            try:
+                info = np.linalg.inv(per_edge)
+            except np.linalg.LinAlgError:
+                a = b
+                continue
+            for idx in range(a + 1, b + 1):
+                out[idx] = info
+            a = b
+        return out
 
     # ------------------------------------------------------------------
     def _update_endpoints(self):

@@ -116,9 +116,9 @@ class SlamSystem:
     def final_cleanup(self):
         """Final re-match at min_score=0.5 + chi2 closure pruning + final
         pose-graph optimization (log_runner.cpp:176-206), then
-        final_refine_rounds of backend.refine_map; a no-op without a
-        backend. final_joint is refused when the backend is built
-        (backend._refuse_unported)."""
+        final_refine_rounds of backend.refine_map, then with final_joint
+        the joint landmark + pose solve (backend.joint_solve); a no-op
+        without a backend."""
         if self.backend is None:
             return
         self.backend.loop_closure_min_score = 0.5
@@ -150,6 +150,13 @@ class SlamSystem:
                 iterations=self.config.final_opt_iterations,
                 gnc_scale=self.config.final_gnc_scale,
             )
+        if self.config.final_joint:
+            # joint landmark + pose bundle adjustment over all original
+            # measurements; re-run the chi2 prune against the joint
+            # solution and re-solve if any closure fell
+            if self.backend.joint_solve():
+                if self.backend.prune_false_closures():
+                    self.backend.joint_solve()
 
     # ------------------------------------------------------------------
     def write_result(self, path: str):

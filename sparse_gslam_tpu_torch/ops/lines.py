@@ -25,8 +25,9 @@ Re-implements the reference's default extractor algorithm
 The interior split recursion is tiny (<= multicloud_size ~ 176 points)
 and data-dependent, so it runs on host in numpy; the numeric core
 (fit_line_with_cov) is array-polymorphic (numpy arrays or torch
-tensors). Port of sparse_gslam_tpu/ops/lines.py; the smf and hough
-extractors are not ported yet (ROADMAP.md, queue 1).
+tensors). Port of sparse_gslam_tpu/ops/lines.py; extract_lines_any
+also dispatches to the smf and hough extractors (ops/lines_smf.py,
+ops/lines_hough.py).
 """
 from __future__ import annotations
 
@@ -351,9 +352,12 @@ def extract_lines_any(points, covs, params: ExtractorConfig) -> Segments:
     include swap, ls_extractor/README.md:9)."""
     if params.algorithm == "smc":
         return extract_lines(points, covs, params)
-    if params.algorithm in ("smf", "hough"):
-        raise NotImplementedError(
-            f"extractor {params.algorithm!r} is not ported yet "
-            "(ROADMAP.md, queue 1: lines_smf / lines_hough)"
-        )
+    if params.algorithm == "smf":
+        from .lines_smf import extract_lines_smf
+
+        return extract_lines_smf(points, covs, params)
+    if params.algorithm == "hough":
+        from .lines_hough import extract_lines_hough
+
+        return extract_lines_hough(points, covs, params)
     raise ValueError(f"unknown extractor algorithm {params.algorithm!r}")

@@ -1,8 +1,8 @@
 """Landmark-graph Levenberg-Marquardt and pose-graph Gauss-Newton
 solvers on torch tensors.
 
-Port of sparse_gslam_tpu/ops/solvers.py without the joint solve and
-posegraph_chi2 (ROADMAP.md). The landmark graph (the reference's g2o LM
+Port of sparse_gslam_tpu/ops/solvers.py without posegraph_chi2
+(ROADMAP.md). The landmark graph (the reference's g2o LM
 + BlockSolver<-1,2>, src/sparse_gslam/src/graphs.cpp:9-37): fixed-shape
 masked edge tables, batched residuals and closed-form Jacobians,
 scatter-assembled normal equations, Schur elimination of the 2-DoF
@@ -13,7 +13,10 @@ DCS-robustified closures, submap_loop_closer.cpp:286-288): a dense
 (3N)^2 Jacobi-equilibrated Cholesky per Gauss-Newton iteration; its
 keyframe-partitioned counterpart for long graphs is
 parallel/dist_solver.py, which solves its blocks' interiors with
-tridiag_solve_cr batched over the blocks.
+tridiag_solve_cr batched over the blocks. The joint system (the final
+bundle adjustment over poses, landmarks and DCS closures) is the
+landmark graph's dense assembly plus the closures, with the landmarks
+Schur-eliminated through one (3P, 2L) matmul.
 
 Everything runs on the device of the input tensors, in their dtype
 (float64 in the port). Differences from the JAX package:
@@ -24,7 +27,7 @@ Everything runs on the device of the input tensors, in their dtype
     reduction, log2 P batched levels, any leading batch dimensions)
     where the JAX package runs the sequential `tridiag_solve` (under
     vmap in its blocked solver); both solve the same SPD system;
-  - the early-stopping LM loop is a Python loop with one host sync
+  - the early-stopping LM loops are Python loops with one host sync
     per iteration.
 
 Edge types:
@@ -816,3 +819,173 @@ def optimize_pose_graph(
         poses[:, 2] = wrap_angle(poses[:, 2])
         g = g._replace(poses=poses)
     return g
+
+
+# ---------------------------------------------------------------------------
+# joint landmark + pose-graph system (final global bundle adjustment)
+# ---------------------------------------------------------------------------
+
+
+class JointGraphData(NamedTuple):
+    """Fixed-shape tensors for the final joint solve: the landmark graph
+    (odometry chain + line-landmark observations, LMGraphData layout)
+    plus the pose graph's extra edges (loop closures, submap chain
+    edges, keyframe pins) as DCS-robustified SE2 edges. No reference
+    counterpart: the reference discards the landmark graph at every
+    loop closure and finishes pose-graph-only (log_runner.cpp:203-205);
+    the joint solve keeps every original measurement (raw odometry,
+    each landmark observation, the closures)."""
+
+    poses: torch.Tensor  # (P, 3)
+    pose_valid: torch.Tensor  # (P,) bool
+    pose_fixed: torch.Tensor  # (P,) bool
+    odom_meas: torch.Tensor  # (P, 3)
+    odom_info: torch.Tensor  # (P, 3, 3)
+    odom_valid: torch.Tensor  # (P,) bool
+    lms: torch.Tensor  # (L, 2)
+    lm_valid: torch.Tensor  # (L,) bool
+    obs_pose: torch.Tensor  # (E,) int64
+    obs_lm: torch.Tensor  # (E,) int64
+    obs_meas: torch.Tensor  # (E, 2)
+    obs_info: torch.Tensor  # (E, 2, 2)
+    obs_valid: torch.Tensor  # (E,) bool
+    clo_i: torch.Tensor  # (C,) int64
+    clo_j: torch.Tensor  # (C,) int64
+    clo_meas: torch.Tensor  # (C, 3)
+    clo_info: torch.Tensor  # (C, 3, 3)
+    clo_valid: torch.Tensor  # (C,) bool
+
+
+def _joint_lm_view(g: JointGraphData) -> LMGraphData:
+    return LMGraphData(*g[: len(LMGraphData._fields)])
+
+
+def joint_graph_chi2(g: JointGraphData, phi: float):
+    """Robust objective: odometry + observation chi2 plus the
+    DCS-scaled closure chi2 (0-dim tensor)."""
+    chi2, _ = lm_graph_chi2(_joint_lm_view(g))
+    ec = se2_edge_residual(g.poses[g.clo_i], g.poses[g.clo_j], g.clo_meas)
+    c_c = torch.einsum("ni,nij,nj->n", ec, g.clo_info, ec)
+    c_c = dcs_weight(c_c, phi) * c_c
+    return chi2 + torch.where(g.clo_valid, c_c, 0.0).sum()
+
+
+def _assemble_joint_system(g: JointGraphData, phi: float):
+    """Normal equations of the joint system: the landmark-graph terms
+    (dense pose block Hpp, landmark diagonal, coupling edges) plus the
+    DCS-weighted closure terms added into Hpp and bp. Padded closures
+    all point at (0, 0) with zero weight: the scatter-adds accumulate."""
+    Hpp, bp, Hll, bl, Hpl_e = _assemble_lm_system(_joint_lm_view(g))
+    dt = g.poses.dtype
+    xi, xj = g.poses[g.clo_i], g.poses[g.clo_j]
+    e = se2_edge_residual(xi, xj, g.clo_meas)
+    Ji, Jj = se2_edge_jacobians(xi, xj, g.clo_meas)
+    chi2_e = torch.einsum("ni,nij,nj->n", e, g.clo_info, e)
+    w = g.clo_valid.to(dt) * dcs_weight(chi2_e, phi)
+    Ji = Ji * (~g.pose_fixed[g.clo_i]).to(dt)[:, None, None]
+    Jj = Jj * (~g.pose_fixed[g.clo_j]).to(dt)[:, None, None]
+    info_w = g.clo_info * w[:, None, None]
+    OJi = info_w @ Ji
+    OJj = info_w @ Jj
+    H_ij = _mm(Ji, OJj)
+    Hpp.index_put_((g.clo_i, g.clo_i), _mm(Ji, OJi), accumulate=True)
+    Hpp.index_put_((g.clo_j, g.clo_j), _mm(Jj, OJj), accumulate=True)
+    Hpp.index_put_((g.clo_i, g.clo_j), H_ij, accumulate=True)
+    Hpp.index_put_((g.clo_j, g.clo_i), H_ij.transpose(-1, -2),
+                   accumulate=True)
+    bp.index_put_((g.clo_i,), -_vec(OJi, e), accumulate=True)
+    bp.index_put_((g.clo_j,), -_vec(OJj, e), accumulate=True)
+    return Hpp, bp, Hll, bl, Hpl_e
+
+
+def _joint_schur_solve(g: JointGraphData, Hpp, bp, Hll, bl, Hpl_e, lam):
+    """Damped joint solve, Schur-eliminating the landmarks. The fill-in
+    is one matmul, S = Hpp - U U^T with U = Hpl chol(Hll^-1) laid out
+    (3P, 2L), as the JAX package forms it (not _schur_solve's pairwise
+    einsum, which sums in another order). A failed Cholesky gives NaN,
+    which the caller's chi2 test turns into a rejected step."""
+    P = Hpp.shape[0]
+    L = Hll.shape[0]
+    dt, dev = Hpp.dtype, Hpp.device
+    pose_free = (g.pose_valid & (~g.pose_fixed)).to(dt)
+    lm_free = g.lm_valid.to(dt)
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    eye2 = torch.eye(2, dtype=dt, device=dev)
+    ar = torch.arange(P, device=dev)
+    Hpp = Hpp.clone()
+    Hpp[ar, ar] += (
+        lam * eye3 * pose_free[:, None, None]
+        + (1.0 - pose_free)[:, None, None] * eye3
+    )
+    Hll = Hll + lam * eye2 * lm_free[:, None, None] + (
+        (1.0 - lm_free)[:, None, None] * eye2
+    )
+    bp = bp * pose_free[:, None]
+    bl = bl * lm_free[:, None]
+
+    Hll_inv = torch.linalg.inv(Hll)
+    Hpl = torch.zeros((P, L, 3, 2), dtype=dt, device=dev)
+    Hpl.index_put_((g.obs_pose, g.obs_lm), Hpl_e, accumulate=True)
+    R2 = _chol2(Hll_inv)  # (L,2,2): Hll_inv = R2 R2^T
+    U = torch.einsum("plab,lbc->plac", Hpl, R2)
+    # (3P, 2L): row p*3+a, col l*2+c
+    U2 = U.permute(0, 2, 1, 3).reshape(3 * P, 2 * L)
+    Sd = Hpp.permute(0, 2, 1, 3).reshape(3 * P, 3 * P) - U2 @ U2.T
+    rhs = (
+        bp - torch.einsum("plab,lbc,lc->pa", Hpl, Hll_inv, bl)
+    ).reshape(3 * P)
+    dp = _cholesky_solve(Sd, rhs).reshape(P, 3)
+    dl = torch.einsum(
+        "lab,lb->la",
+        Hll_inv,
+        bl - torch.einsum("plab,pa->lb", Hpl, dp),
+    )
+    return dp * pose_free[:, None], dl * lm_free[:, None]
+
+
+def optimize_joint_graph(
+    g: JointGraphData, phi: float, iterations: int = 12,
+    tau: float = 1e-6, rtol: float = 1e-9,
+):
+    """Levenberg-Marquardt on the joint landmark + pose system, with
+    optimize_landmark_graph's damping schedule; closures are
+    DCS-reweighted at every relinearization. Warm-started from the
+    pose-graph solution. One host sync per iteration decides the early
+    stop (an accepted step improving chi2 by less than rtol
+    relatively, or lambda past 1e10).
+
+    Returns (g_optimized, chi2) with a 0-dim chi2."""
+    chi2 = joint_graph_chi2(g, phi)
+    Hpp0, _, Hll0, _, _ = _assemble_joint_system(g, phi)
+    ar = torch.arange(Hpp0.shape[0], device=Hpp0.device)
+    lam = tau * torch.maximum(
+        torch.diagonal(Hpp0[ar, ar], dim1=-2, dim2=-1).abs().max(),
+        torch.diagonal(Hll0, dim1=-2, dim2=-1).abs().max(),
+    )
+    del Hpp0
+    ni = torch.full_like(lam, 2.0)
+    for _ in range(iterations):
+        Hpp, bp, Hll, bl, Hpl_e = _assemble_joint_system(g, phi)
+        dp, dl = _joint_schur_solve(g, Hpp, bp, Hll, bl, Hpl_e, lam)
+        del Hpp
+        g_new = _lm_apply(g, dp, dl)
+        chi2_new = joint_graph_chi2(g_new, phi)
+        lin = (dp * (lam * dp + bp)).sum() + (dl * (lam * dl + bl)).sum()
+        rho = (chi2 - chi2_new) / torch.clamp(lin, min=1e-12)
+        accept = (rho > 0.0) & torch.isfinite(chi2_new)
+        factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+        lam_next = torch.where(accept, lam * factor, lam * ni)
+        ni = torch.where(accept, 2.0, ni * 2.0)
+        g = g._replace(
+            poses=torch.where(accept, g_new.poses, g.poses),
+            lms=torch.where(accept, g_new.lms, g.lms),
+        )
+        rel_impr = torch.where(
+            accept, (chi2 - chi2_new) / torch.clamp(chi2, min=1e-30),
+            torch.inf,
+        )
+        chi2 = torch.where(accept, chi2_new, chi2)
+        lam = lam_next
+        if bool((rel_impr < rtol) | (lam > 1e10)):
+            break
+    return g, chi2

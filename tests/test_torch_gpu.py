@@ -12,7 +12,10 @@ refinement bit-equal (the kernel rounds as its plain version); the float64
 pose graph rtol 1e-9 (atomics sum in a run-dependent order); the
 blocked pose-graph solver 1e-8 m/rad after 40 iterations in float64
 (converged: in-flight iterates of a long chain spread rounding
-differences), 1e-5 in float32 after four float64 refinement rounds.
+differences), 1e-5 in float32 after four float64 refinement rounds;
+the joint landmark + pose solve 1e-8 m/rad and chi2 rtol 1e-9 (cuBLAS
+and cuSOLVER against the CPU's BLAS and LAPACK on a well-conditioned
+loop).
 """
 import numpy as np
 import pytest
@@ -256,3 +259,67 @@ def test_blocked_pose_graph_on_cuda_matches_cpu(dtype):
     np.testing.assert_allclose(out["cuda"].cpu().double().numpy(),
                                out["cpu"].double().numpy(), rtol=0,
                                atol=1e-8 if rounds == 0 else 1e-5)
+
+
+@pytest.mark.gpu
+def test_joint_solve_on_cuda_matches_cpu():
+    """optimize_joint_graph on the card against the same solve on the
+    CPU (float64 both): a 40-pose loop padded to 64 that observes 8
+    lines outside it, one closure end to start and one gross outlier
+    closure (DCS), padded edge and closure slots at index 0."""
+    need_card()
+    from sparse_gslam_tpu_torch.interop import joint_graph_from_numpy
+    from sparse_gslam_tpu_torch.ops.line_geometry import transform_line
+
+    rng = np.random.default_rng(3)
+    P, n, L, C = 64, 40, 8, 4
+    truth = [np.zeros(3)]
+    for k in range(1, n):
+        turn = np.pi / 2 if k % (n // 4) == 0 else 0.0
+        truth.append(se2.compose(truth[-1], np.array([0.5, 0.0, turn])))
+    truth = np.stack(truth)
+    lines = np.stack([np.array([8.0 + 0.5 * k, 0.8 * k]) for k in range(L)])
+    odom = np.zeros((P, 3))
+    poses = np.zeros((P, 3))
+    for k in range(1, n):
+        odom[k] = se2.relative(truth[k - 1], truth[k]) + rng.normal(
+            0.0, [0.03, 0.03, 0.01])
+        poses[k] = se2.compose(poses[k - 1], odom[k])
+    obs = [(k, m) for k in range(n) for m in range(L) if (k + m) % 2 == 0]
+    E = 256
+    obs_pose = np.zeros(E, np.int64)
+    obs_lm = np.zeros(E, np.int64)
+    obs_meas = np.zeros((E, 2))
+    for e, (k, m) in enumerate(obs):
+        inv = se2.inverse(truth[k])
+        obs_pose[e], obs_lm[e] = k, m
+        obs_meas[e] = np.asarray(transform_line(lines[m], inv[:2], inv[2]))
+    clo = [(0, n - 1), (5, n // 2)]
+    clo_meas = np.zeros((C, 3))
+    for c, (i, j) in enumerate(clo):
+        clo_meas[c] = se2.relative(truth[i], truth[j])
+    clo_meas[1] += [1.5, -1.0, 0.5]
+    fields = dict(
+        poses=poses, pose_valid=np.arange(P) < n,
+        pose_fixed=np.arange(P) == 0, odom_meas=odom,
+        odom_info=np.tile(np.eye(3) * 400.0, (P, 1, 1)),
+        odom_valid=(np.arange(P) > 0) & (np.arange(P) < n),
+        lms=lines + rng.normal(0.0, 0.05, lines.shape),
+        lm_valid=np.ones(L, bool), obs_pose=obs_pose, obs_lm=obs_lm,
+        obs_meas=obs_meas, obs_info=np.tile(np.eye(2) * 1e4, (E, 1, 1)),
+        obs_valid=np.arange(E) < len(obs),
+        clo_i=np.array([c[0] for c in clo] + [0, 0]),
+        clo_j=np.array([c[1] for c in clo] + [0, 0]),
+        clo_meas=clo_meas, clo_info=np.tile(np.eye(3) * 1e4, (C, 1, 1)),
+        clo_valid=np.arange(C) < len(clo),
+    )
+    out = {}
+    for dev in ("cpu", "cuda"):
+        g, chi2 = solvers.optimize_joint_graph(
+            joint_graph_from_numpy(fields, dev), 10.0, 12)
+        out[dev] = (g.poses.cpu().numpy(), g.lms.cpu().numpy(), float(chi2))
+    for a, b in zip(out["cuda"][:2], out["cpu"][:2]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-8)
+    np.testing.assert_allclose(out["cuda"][2], out["cpu"][2], rtol=1e-9)
+    assert out["cpu"][2] < 0.1 * float(solvers.joint_graph_chi2(
+        joint_graph_from_numpy(fields, "cpu"), 10.0))

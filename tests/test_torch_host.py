@@ -38,6 +38,16 @@ YAMLS = sorted(glob.glob(os.path.join(ROOT, "datasets", "sim-*", "*.yaml")))
 OFFICE = os.path.join(ROOT, "datasets", "sim-office")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The suite runs in several worker processes at once; one torch
+    thread per worker keeps them from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("path", YAMLS, ids=[
     os.path.relpath(p, ROOT) for p in YAMLS])
 def test_flat_yaml_matches_pyyaml(path):
@@ -147,14 +157,6 @@ def test_multicloud_and_lines_on_sim_office():
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("algorithm", ["smf", "hough"])
-def test_unported_extractors_raise(algorithm):
-    params = tcfg.ExtractorConfig(algorithm=algorithm)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlines.extract_lines_any(np.zeros((20, 2)), np.zeros((20, 2, 2)),
-                                 params)
-
-
 def make_store(mod):
     r = np.random.default_rng(2)
     ang = np.linspace(-1.5, 1.5, 9)
@@ -197,11 +199,57 @@ def test_carmen_parser_matches_jax():
         np.testing.assert_array_equal(a.ranges, b.ranges)
 
 
-@pytest.mark.parametrize("name", ["stanford", "fr079", "usc", "drone_bag",
-                                  "oregon"])
-def test_unported_providers_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tprov.create_data_provider(name, "unused.log")
+# the values the port refused before it ported them: (slam.yaml key,
+# value) pairs, SlamSystem built on the CPU
+FORMERLY_REFUSED = {
+    "final_joint": ("final_joint", True),
+    "chain_info_marginal": ("chain_info_mode", "marginal"),
+    "smf": ("algorithm", "smf"),
+    "hough": ("algorithm", "hough"),
+    "stanford": ("data_provider", "stanford"),
+    "fr079": ("data_provider", "fr079"),
+    "usc": ("data_provider", "usc"),
+    "drone_bag": ("data_provider", "drone_bag"),
+    "oregon": ("data_provider", "oregon"),
+}
+
+
+@pytest.mark.parametrize("case", list(FORMERLY_REFUSED))
+def test_formerly_refused_values_run(tmp_path, case):
+    """Each value the port once refused builds a SlamSystem (backend on)
+    on the CPU that takes frames: the options on sim-office's first 60
+    frames, then final_cleanup; each provider on a log of its format
+    written here (tests/test_torch_providers.py's generators)."""
+    from test_torch_providers import TEXT_LOGS, drone_bag
+
+    key, value = FORMERLY_REFUSED[case]
+    slam, ls = tcfg.load_dataset_config(OFFICE)
+    if key == "algorithm":
+        ls = dataclasses.replace(ls, algorithm=value)
+    else:
+        slam = dataclasses.replace(slam, **{key: value})
+    log = os.path.join(OFFICE, "sim-office.log")
+    n_frames = 60
+    if key == "data_provider":
+        log = str(tmp_path / f"{value}.log")
+        if value == "drone_bag":
+            drone_bag(log, np.random.default_rng(1), "bz2")
+            slam = dataclasses.replace(slam, scan_size=4)
+        else:
+            with open(log, "w") as fh:
+                fh.write("\n".join(TEXT_LOGS[value](
+                    np.random.default_rng(1))) + "\n")
+        n_frames = None
+    ts = TSlamSystem(slam, ls, device="cpu")
+    frames = list(tprov.create_data_provider(slam.data_provider,
+                                             log).frames())[:n_frames]
+    for fr in frames:
+        ts.process_frame(fr)
+    assert ts.frame_idx == len(frames) > 0
+    if key != "data_provider":
+        assert len(ts.frontend.keyframes) > 5
+        ts.final_cleanup()
+        assert ts.backend.pose_count == len(ts.frontend.keyframes)
 
 
 def test_result_writer_and_relations(tmp_path):

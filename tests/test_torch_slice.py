@@ -107,6 +107,10 @@ def test_runner_subprocess_imports_no_jax(tmp_path, case):
         "import sparse_gslam_tpu_torch.eval.synthetic_graphs\n"
         "import sparse_gslam_tpu_torch.io.native\n"
         "import sparse_gslam_tpu_torch.ops.refine_cuda\n"
+        "import sparse_gslam_tpu_torch.ops.lines_smf\n"
+        "import sparse_gslam_tpu_torch.ops.lines_hough\n"
+        "import sparse_gslam_tpu_torch.io.rosbag\n"
+        "import sparse_gslam_tpu_torch.interop\n"
         f"runner.main(['--dataset-dir', {str(data)!r}, '--dataset-name', "
         f"'sim-office', '--device', 'cpu', *{flags!r}, '--max-frames', "
         f"'{frames}', '--eval', '--map-png', {str(png)!r}])\n"
