@@ -25,12 +25,12 @@ their failures fail it after the kernels line):
 4. refine  -- the refinement kernel: the header's sinf/cosf on the
    card against the host C library's for every float32 of |theta| <=
    4 pi, then seeded cases (a room and a corridor whose J^T J is
-   singular along it, every N the callers pad to from 256 to 4096,
+   singular along it, every N the callers pad to from 256 to 8192,
    grids at 0.1 m (G=320) and 0.05 m (G=576), one stage, two stages
    and the pose alone), each one launch and torch.equal to the plain
    version on pose, covariance and probabilities, with its time, its
    bound, its serial-chain latency and the GN steps its stages ran;
-   and a launch at N = 8192 refused.
+   and a launch at N = 16384 refused.
 5. main    -- the frontend-only runner on a temporary copy of
    datasets/sim-office on cuda (--no-backend --eval --map-png): the
    kernel must have launched, the ATE line and the counts must equal
@@ -68,28 +68,46 @@ their failures fail it after the kernels line):
 10. marginal -- as phase 6 with chain_info_mode: marginal (chain edges
    carry Frontend.relative_chain_info), held in full against
    data/sim-office-marginal.*.
-11. blocked -- the keyframe-partitioned pose-graph solver on the card on
+11. realtime -- sim-office through the runner's simulated-realtime mode
+   (--realtime --rate 2 --map-every 100 --live-view 2: the frontend
+   paced at twice the log's 5 Hz, the backend thread and the live-view
+   thread each on a CUDA stream of its own); every insertion and
+   refinement of the backend and main threads replayed torch.equal,
+   and LIVE_VIEW_REPLAYS of the live view's map renders; the frontend tick
+   (mean, p99, max) beside the batch run's of phase 6, late frames,
+   backend ticks, the `backend:`/`closures:`/ATE lines (reported, not
+   held: the run is not deterministic), launches by thread, live-view
+   renders and render errors. Fails on a thread's exception, a render
+   error, a broken invariant or a frame not processed.
+12. resume -- the JAX package's checkpoint of sim-office at frame 330
+   (data/sim-office-ckpt330.npz, scripts/make_office_checkpoint.py)
+   loaded on the card (grids rebuilt by the kernel, each insertion
+   torch.equal), continued 60 frames against the JAX continuation
+   (RESUME_ATOL); saved by the port, loaded and continued again, the
+   same.
+13. blocked -- the keyframe-partitioned pose-graph solver on the card on
    synthetic chains of 2k and 16k poses (BLOCKED_CASES), against the
    float64 C++ solver on the host at the same iteration count and, at
    2k, against the dense solver on the card; GN iterations/s of both.
-12. joint_solver -- optimize_joint_graph on the card on seeded graphs at
+14. joint_solver -- optimize_joint_graph on the card on seeded graphs at
    sim-office's and sim-killian's joint-solve sizes (JOINT_CASES; P =
    512 and 2048 padded poses), against the same solve on the CPU
    (JOINT_ATOL, JOINT_CHI2_RTOL, the same LM iterations); ms per
    iteration and per solve.
-13. killian -- the full runner on sim-killian (2626 frames, a pose graph
+15. killian -- the full runner on sim-killian (2626 frames, a pose graph
    padded to 2048) on cuda, as phase 6, with every pose-graph solve
    recorded: from dist_solver_min_poses padded poses up each must take
    the blocked solver and agree with the C++ solver on its graph; held
    in full but for the two printed numbers WORLDS exempts.
-14. world  -- with --all-worlds, sim-loops and sim-corridor as phase 6,
-   and sim-office with algorithm: smf and algorithm: hough (phases smf
-   and hough, held against data/sim-office-{smf,hough}.*).
-15. kernels -- one line per hand-written kernel: launches in the main
-   path's run (the sim-killian run; launches_by_path has every run),
-   error against the plain version, its time, the plain version's
-   time and the least time the card could take, summed over that
-   run's calls.
+16. world  -- with --all-worlds, sim-loops and sim-corridor as phase 6,
+   sim-office with algorithm: smf and algorithm: hough (phases smf
+   and hough, held against data/sim-office-{smf,hough}.*), and
+   sim-killian in realtime at rate 1.5 (as phase 11).
+17. kernels -- one line per hand-written kernel: launches summed over
+   every path's run (launches_by_path has each, counted from 0 before
+   it), error against the plain version, and its time, the plain
+   version's time and the least time the card could take, summed over
+   the sim-killian run's calls (timed_launches).
 
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX
 or of the JAX package.
@@ -107,6 +125,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -892,9 +911,11 @@ REFINE_CASES = [
     ("room", 2048, ("score", 0.1), 14), ("room", 4096, (0.1,), 15),
     ("corridor", 4096, (0.05,), 16), ("room", 4096, ("score", 0.05), 17),
     ("corridor", 4096, ("score", 0.1), 18),
+    # the largest query the kernel takes (rows 131 KB of shared memory)
+    ("room", 8192, (0.1,), 19), ("corridor", 8192, ("score", 0.05), 20),
 ]
 # a padded point count the kernel must refuse
-REFINE_REFUSED_N = 8192
+REFINE_REFUSED_N = 16384
 
 
 def run_refine(stages, query, iterations=10, want_cov=True):
@@ -953,7 +974,7 @@ def phase_refine(host_lib):
     """The refinement kernel against its plain version on the card: the
     header's sinf/cosf on every float32 of |theta| <= 4 pi against the
     host's C library, then seeded cases (a room and a near-singular
-    corridor, N = 256 to 4096, grids at 0.1 m (G=320) and 0.05 m
+    corridor, N = 256 to 8192, grids at 0.1 m (G=320) and 0.05 m
     (G=576), one stage and two, and refine_pose alone), each
     torch.equal on pose, covariance and probabilities, with its time
     beside its bound, its serial-chain latency and the GN steps its
@@ -973,7 +994,9 @@ def phase_refine(host_lib):
             torch.cuda.synchronize()
             launches = refine_cuda.refine_cuda.launches - before
             taps = TapRecorder()
+            t0 = time.perf_counter()
             ref = plain_refine(stages, query, want_cov=want_cov, taps=taps)
+            plain_ms = (time.perf_counter() - t0) * 1e3
             equal = refine_equal(got, ref)
             err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
             cells = taps.cells()
@@ -984,9 +1007,6 @@ def phase_refine(host_lib):
             steps = steps.tolist()
             ms = time_ms(lambda: run_refine(stages, query,
                                             want_cov=want_cov), 20)
-            t0 = time.perf_counter()
-            plain_refine(stages, query, want_cov=want_cov)
-            plain_ms = (time.perf_counter() - t0) * 1e3
             w = (np.linalg.eigvalsh(got[1].double().cpu().numpy())
                  if want_cov else None)
             row = {
@@ -1020,19 +1040,25 @@ def phase_refine(host_lib):
 class RefineRecorder:
     """Wraps ops/matching._refine (every refinement of a run) to keep
     each call's arguments and result, to replay them through the plain
-    version afterwards."""
+    version afterwards; `threads` counts the calls by thread name. Safe
+    to call from several threads (the realtime run's)."""
 
     def __init__(self):
         self.calls = []
+        self.threads = {}
+        self._lock = threading.Lock()
         self._orig = matching_mod._refine
 
     def _refine(self, stages, points, point_valid, init_pose, iterations,
                 want_cov):
         out = self._orig(stages, points, point_valid, init_pose,
                          iterations, want_cov)
-        self.calls.append(((stages, points, point_valid, init_pose,
-                            iterations, want_cov),
-                           out if want_cov else (out,)))
+        name = threading.current_thread().name
+        with self._lock:
+            self.calls.append(((stages, points, point_valid, init_pose,
+                                iterations, want_cov),
+                               out if want_cov else (out,)))
+            self.threads[name] = self.threads.get(name, 0) + 1
         return out
 
     @contextlib.contextmanager
@@ -1044,13 +1070,52 @@ class RefineRecorder:
             matching_mod._refine = self._orig
 
 
+_REPLAY_POOL = []
+
+
+def replay_pool():
+    """The worker processes (spawned, one torch and BLAS thread each, up
+    to 8) that replay recorded refinements through the plain version on
+    the host; main() shuts them down."""
+    if not _REPLAY_POOL:
+        import concurrent.futures
+        import multiprocessing
+
+        saved = os.environ.get("OMP_NUM_THREADS")
+        os.environ["OMP_NUM_THREADS"] = "1"
+        try:
+            _REPLAY_POOL.append(concurrent.futures.ProcessPoolExecutor(
+                max_workers=min(8, os.cpu_count() or 1),
+                mp_context=multiprocessing.get_context("spawn")))
+        finally:
+            if saved is None:
+                del os.environ["OMP_NUM_THREADS"]
+            else:
+                os.environ["OMP_NUM_THREADS"] = saved
+    return _REPLAY_POOL[0]
+
+
+def plain_replay(job):
+    """Worker: one recorded refinement (host copies of its stages and
+    query) through the plain version, with the grid cells its
+    evaluations read (TapRecorder) and its seconds."""
+    stages, query, iterations, want_cov = job
+    torch.set_num_threads(1)
+    taps = TapRecorder()
+    t0 = time.perf_counter()
+    ref = plain_refine(stages, query, iterations, want_cov, taps)
+    return ref, taps.cells(), time.perf_counter() - t0
+
+
 def replay_refinements(calls):
-    """Every recorded refinement of a run through the plain version on
-    the same CUDA tensors (torch.equal on each output), the same call
-    through the kernel's wrapper for the GN steps its stages ran, and
-    the call through the kernel again, timed on the card (one launch
-    behind a sleeping kernel). Returns the readings summed over the
-    calls and split by padded point count N; the plain time includes
+    """Every recorded refinement of a run through the plain version
+    (torch.equal on each output; on host copies of the same tensors, in
+    replay_pool's processes: the plain version computes on the host
+    whatever the device), the same call through the kernel's wrapper for
+    the GN steps its stages ran, and the call through the kernel again,
+    timed on the card (one launch behind a sleeping kernel). Returns the
+    readings summed over the calls and split by padded point count N;
+    the plain time (each call's own seconds in its process) includes
     TapRecorder's appends (a list append per evaluation), not its cell
     count."""
     unequal = []
@@ -1058,14 +1123,17 @@ def replay_refinements(calls):
     cells = 0
     by = {"bytes": 0.0, "operations": 0.0}
     by_n = {}
-    for k, (args, out) in enumerate(calls):
+    jobs = [([(g.cpu(), o.cpu(), r) for g, o, r in args[0]],
+             tuple(x.cpu() for x in args[1:4]), args[4], args[5])
+            for args, _ in calls]
+    plains = replay_pool().map(plain_replay, jobs, chunksize=4)
+    for k, ((args, out), (ref, n_cells, secs)) in enumerate(
+            zip(calls, plains)):
         stages, pts, valid, init, iterations, want_cov = args
         query = (pts, valid, init)
         n = pts.shape[0]
-        taps = TapRecorder()
-        t0 = time.perf_counter()
-        ref = plain_refine(stages, query, iterations, want_cov, taps)
-        plain_ms += (time.perf_counter() - t0) * 1e3
+        plain_ms += secs * 1e3
+        out = [o.cpu() for o in out]
         if not refine_equal(out, ref):
             unequal.append(k)
         err = max(err, max(float((a - b).abs().max())
@@ -1074,7 +1142,6 @@ def replay_refinements(calls):
         call_ms = time_ms(lambda: run_refine(stages, query, iterations,
                                              want_cov), 1, warmup=0)
         ms += call_ms
-        n_cells = taps.cells()
         cells += n_cells
         b, bound_by, c = refine_bound(len(stages), n, n_cells,
                                       iterations, want_cov)
@@ -1108,7 +1175,7 @@ def phase_main():
         data = os.path.join(tmp, "sim-office")
         shutil.copytree(DATASET, data)
         png = os.path.join(tmp, "map.png")
-        grid_cuda.insert_rays_cuda.launches = 0
+        grid_cuda.reset_launches(grid_cuda.insert_rays_cuda)
         t0 = time.perf_counter()
         r = runner.run([
             "--dataset-dir", data, "--dataset-name", "sim-office",
@@ -1174,25 +1241,39 @@ def phase_main():
 class InsertRecorder:
     """Wraps ops/grid.insert_rays (which every grid build calls) to keep
     each call's arguments, result and the phase that made it: the
-    innermost of the wrapped callers on the stack."""
+    innermost of the wrapped callers on the calling thread's stack.
+    `threads` counts the calls by thread name. Safe to call from several
+    threads (the realtime run's)."""
 
     def __init__(self):
         self.calls = []
-        self.phase = ["other"]
+        self.call_threads = []
+        self.threads = {}
+        self._lock = threading.Lock()
+        self._local = threading.local()
         self._orig = grid_mod.insert_rays
+
+    def _stack(self):
+        if not hasattr(self._local, "phase"):
+            self._local.phase = ["other"]
+        return self._local.phase
 
     def insert(self, *args):
         out = self._orig(*args)
-        self.calls.append((self.phase[-1], args, out))
+        name = threading.current_thread().name
+        with self._lock:
+            self.calls.append((self._stack()[-1], args, out))
+            self.call_threads.append(name)
+            self.threads[name] = self.threads.get(name, 0) + 1
         return out
 
     def tag(self, phase, fn):
         def wrapped(*a, **k):
-            self.phase.append(phase)
+            self._stack().append(phase)
             try:
                 return fn(*a, **k)
             finally:
-                self.phase.pop()
+                self._stack().pop()
         return wrapped
 
     @contextlib.contextmanager
@@ -1514,8 +1595,8 @@ def phase_full(world, phase, out_dir):
         cleanup = CleanupRecorder()
         tee = Tee(sys.stdout)
         os.environ["SLAM_LOG_MATCHES"] = "1"
-        grid_cuda.insert_rays_cuda.launches = 0
-        refine_cuda.refine_cuda.launches = 0
+        grid_cuda.reset_launches(grid_cuda.insert_rays_cuda,
+                                 refine_cuda.refine_cuda)
         t0 = time.perf_counter()
         try:
             with rec.active(), solves.active(), refines.active(), \
@@ -1638,10 +1719,330 @@ def phase_full(world, phase, out_dir):
         })
         return {"launches": launches, "insertions": rec.calls,
                 "refine_launches": refine_launches, "replay": replay,
+                "frontend_ms": ft * 1e3,
                 "problems": [f"{world}: " + "; ".join(problems)]
                 if problems else []}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def tick_stats(ms):
+    """Mean, 99th percentile and max of tick times in ms, and their
+    count."""
+    ms = np.asarray(ms, dtype=np.float64)
+    if not len(ms):
+        return {"n": 0}
+    return {"mean": float(ms.mean()), "p99": float(np.percentile(ms, 99)),
+            "max": float(ms.max()), "n": len(ms)}
+
+
+def realtime_invariants(system, result_path):
+    """The realtime CPU test's invariants (tests/test_torch_live.py):
+    finite estimates, aligned pose-graph arrays, finite closures with
+    endpoints inside the chain, a finite .result whose times never go
+    back. Returns the broken ones."""
+    fe, be = system.frontend, system.backend
+    est = fe.estimates()
+    problems = []
+    if not np.isfinite(est).all():
+        problems.append("non-finite keyframe estimates")
+    if not len(be.pg_poses) == len(be.pg_meas) == len(be.pg_info):
+        problems.append("pose-graph arrays not aligned")
+    if len(be.pg_poses) > len(est):
+        problems.append("more pose-graph vertices than keyframes")
+    if be.pg_poses and not np.isfinite(np.stack(be.pg_poses)).all():
+        problems.append("non-finite pose-graph vertices")
+    for c in be.closures:
+        if not (0 <= c.i < len(est) and 0 <= c.j < len(est)
+                and np.isfinite(c.meas).all()):
+            problems.append(f"closure {c.i}->{c.j} outside the chain or "
+                            f"non-finite")
+            break
+    times, poses = load_result(result_path)
+    if not (np.isfinite(poses).all() and (np.diff(times) >= 0).all()):
+        problems.append(".result non-finite or not monotone")
+    return problems
+
+
+def phase_realtime(world, rate, out_dir, batch_ms):
+    """The runner's simulated-realtime mode on a temporary copy of
+    datasets/<world> on cuda: the frontend paced at the log's timestamps
+    over `rate`, the backend thread free-running on its own stream, the
+    live view rendering at 2 Hz on another and a map dumped every 100
+    frames (--realtime --rate R --map-every 100 --live-view 2 --eval
+    --map-png). Every insertion and refinement of the backend and main
+    threads is replayed through its plain version (torch.equal each),
+    and LIVE_VIEW_REPLAYS of the live view's map renders, evenly spaced,
+    the first and last among them: the plain version inserts a map scan
+    by scan, ~0.6 s a render on sim-office, which has ~320 of them, and
+    seconds on sim-killian, which has ~1,850. Prints the
+    frontend tick (mean, p99, max) against `batch_ms` (the same world's
+    batch run in this call), the late frames, the backend ticks, the
+    run's `backend:`/`closures:`/ATE lines (reported, not held: which
+    snapshot the backend sees depends on timing), launches by thread
+    and the live view's renders and render errors. Fails on a thread's
+    exception, a render error, a broken invariant (realtime_invariants)
+    or a frame not processed."""
+    dataset = WORLDS[world].get("dataset", world)
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_rt_{world}_")
+    try:
+        data = os.path.join(tmp, dataset)
+        shutil.copytree(os.path.join(REPO, "datasets", dataset), data)
+        n_log = sum(1 for _ in open(os.path.join(data, f"{dataset}.log")))
+        png = os.path.join(tmp, "map.png")
+        rec, refines, tee = InsertRecorder(), RefineRecorder(), Tee(
+            sys.stdout)
+        grid_cuda.reset_launches(grid_cuda.insert_rays_cuda,
+                                 refine_cuda.refine_cuda)
+        problems, r = [], None
+        t0 = time.perf_counter()
+        try:
+            with rec.active(), refines.active(), \
+                    contextlib.redirect_stdout(tee):
+                r = runner.run([
+                    "--dataset-dir", data, "--dataset-name", dataset,
+                    "--realtime", "--rate", str(rate), "--map-every", "100",
+                    "--live-view", "2", "--eval", "--map-png", png,
+                    "--device", "cuda",
+                ])
+        except Exception as e:  # a thread's exception ends the run
+            problems.append(f"the run raised {e!r}")
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        # read before the replays, whose timing launches the kernels too
+        launches = {
+            "insert_rays": dict(grid_cuda.insert_rays_cuda.launches_by_thread),
+            "refine_pose": dict(refine_cuda.refine_cuda.launches_by_thread)}
+        live_maps = [k for k, name in enumerate(rec.call_threads)
+                     if name == LIVE_VIEW_THREAD]
+        keep = np.linspace(0, len(live_maps) - 1,
+                           min(LIVE_VIEW_REPLAYS, len(live_maps))).round()
+        skip = set(live_maps) - {live_maps[int(i)] for i in keep}
+        unequal = [k for k, (_, args, out) in enumerate(rec.calls)
+                   if k not in skip
+                   and not torch.equal(out, insert_rays_plain(*args))]
+        replay = replay_refinements(refines.calls)
+        text = tee.buf.getvalue()
+        lines = text.splitlines()
+
+        def line_of(prefix):
+            return next((ln for ln in lines if ln.startswith(prefix)), "")
+
+        reading = {"phase": f"realtime_{world}", "world": world,
+                   "rate": rate, "log_frames": n_log}
+        if r is not None:
+            sysm, rt, live = r.system, r.system.realtime, r.live
+            dumps = sorted(f for f in os.listdir(tmp)
+                           if re.fullmatch(r"map-\d{5}\.png", f))
+            reading.update({
+                "frames": r.n_frames, "frames_processed": sysm.frame_idx,
+                "frame_loop_s": r.wall_s,
+                "frontend_ms": tick_stats(np.asarray(sysm.frontend_times)
+                                          * 1e3),
+                "batch_frontend_ms": tick_stats(batch_ms),
+                "late_frames": rt.late,
+                "lag_s": {"mean": float(np.mean(rt.lags)),
+                          "max": float(np.max(rt.lags))},
+                "backend_ticks": len(rt.backend_ticks),
+                "backend_tick_ms": tick_stats(np.asarray(rt.backend_ticks)
+                                              * 1e3),
+                "live_renders": live.renders, "render_errors": live.errors,
+                "map_dumps": dumps,
+            })
+            if sysm.frame_idx != n_log or r.n_frames != n_log:
+                problems.append(f"{sysm.frame_idx} of {n_log} frames "
+                                f"processed")
+            if live.errors:
+                problems.append(f"{live.errors} render errors")
+            if len(dumps) != n_log // 100:
+                problems.append(f"map dumps {dumps}")
+            problems += realtime_invariants(
+                sysm, os.path.join(data, f"{dataset}.result"))
+        if unequal:
+            problems.append(f"insertions differ from the plain version: "
+                            f"{unequal[:5]}")
+        if replay["refine_calls_unequal"]:
+            problems.append(f"refinements differ from the plain version: "
+                            f"{replay['refine_calls_unequal'][:5]}")
+        if sum(launches["insert_rays"].values()) != len(rec.calls):
+            problems.append(f"insertion launches {launches} for "
+                            f"{len(rec.calls)} insertions")
+        if sum(launches["refine_pose"].values()) != len(refines.calls):
+            problems.append(f"refinement launches {launches} for "
+                            f"{len(refines.calls)} refinements")
+        reading.update({
+            "done_line": line_of("done:"), "backend_line": line_of("backend:"),
+            "closures_line": line_of("closures:"),
+            "ate": line_of("ATE trans"), "realtime_line": line_of("realtime:"),
+            "live_line": line_of("live view:"),
+            "launches_by_thread": launches,
+            "insertions_by_thread": rec.threads,
+            "refinements_by_thread": refines.threads,
+            "insertions_replayed": len(rec.calls) - len(skip),
+            "live_view_insertions": len(live_maps),
+            "live_view_insertions_replayed": len(live_maps) - len(skip),
+            "insertions_unequal": unequal,
+            "refinements_replayed": len(refines.calls),
+            "refine_calls_unequal": replay["refine_calls_unequal"],
+            "total_s": total_s, "problems": problems,
+        })
+        emit(reading)
+        with open(os.path.join(out_dir, f"realtime_{world}.log"), "w") as fh:
+            fh.write(text)
+        return {"launches": sum(launches["insert_rays"].values()),
+                "refine_launches": sum(launches["refine_pose"].values()),
+                "replay": replay,
+                "problems": [f"realtime {world}: " + "; ".join(problems)]
+                if problems else []}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# the live view's map renders of a realtime run replayed through the
+# plain version (phase_realtime), and the name of its thread
+LIVE_VIEW_REPLAYS = 12
+LIVE_VIEW_THREAD = "slam-live-view"
+
+RESUME_CHECKPOINT = os.path.join(DATA, "sim-office-ckpt330.npz")
+RESUME_RUN = os.path.join(DATA, "sim-office-ckpt330-run.npz")
+# the JAX package's own checkpoint test's tolerance
+# (tests/test_checkpoint_and_system.py)
+RESUME_ATOL = 1e-6
+
+
+def resume_continuations(device, save_path):
+    """The JAX package's checkpoint of sim-office at frame 330
+    (scripts/make_office_checkpoint.py) loaded into the port on
+    `device` (the grids rebuilt by Backend.precompute), the runner
+    fields it leaves out set from the sidecar, and continued 60 frames;
+    and the loaded state saved by the port to `save_path`, loaded again
+    and continued the same 60 frames. Returns the readings: the largest
+    differences of each continuation's keyframe and pose-graph
+    estimates from the JAX package's (which saved, loaded and continued
+    the same way), and of the second continuation's keyframe estimates
+    from the first's. (The second load adds a chain edge to those saved,
+    in both packages, so the two pose graphs differ: ROADMAP.md,
+    section 3.)"""
+    from sparse_gslam_tpu_torch.io.providers import create_data_provider
+    from sparse_gslam_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from sparse_gslam_tpu_torch.utils.config import load_dataset_config
+
+    with np.load(RESUME_RUN) as z:
+        run = {k: z[k] for k in z.files}
+    cut, n = int(run["cut"]), int(run["continue_frames"])
+    frames = list(create_data_provider(
+        "carmen", os.path.join(DATASET, "sim-office.log")).frames())
+
+    def resumed(path):
+        s = SlamSystem(*load_dataset_config(DATASET), device=device)
+        load_checkpoint(path, s)
+        s.frame_idx = int(run["frame_idx"])
+        s.deltas = list(run["deltas"])
+        s.zero_pose = run["zero_pose"].copy()
+        s.last_pose = run["last_pose"].copy()
+        s.mc._cloud_odom = run["cloud_odom"].copy()
+        return s
+
+    first = resumed(RESUME_CHECKPOINT)
+    save_checkpoint(save_path, first)
+    second = resumed(save_path)
+    for fr in frames[cut:cut + n]:
+        first.process_frame(fr)
+        second.process_frame(fr)
+
+    def diff(a, b):
+        return (float(np.abs(a - b).max()) if a.shape == b.shape
+                else float("inf"))
+
+    out = {"atol": RESUME_ATOL}
+    for name, s in (("", first), ("second_", second)):
+        est, pg = s.frontend.estimates(), s.backend.pose_estimates()
+        out.update({
+            f"{name}keyframes": len(est),
+            f"{name}submaps": s.backend.submap_count,
+            f"{name}loop_closures": s.backend.closure_count,
+            f"{name}estimates_max_abs_err": diff(
+                est, run[f"{name}estimates"]),
+            f"{name}pg_max_abs_err": diff(pg, run[f"{name}pg_estimates"]),
+        })
+    out["reference"] = {k: int(run[k]) for k in (
+        "submaps", "closures", "second_submaps", "second_closures")}
+    out["reference"]["keyframes"] = len(run["estimates"])
+    out["second_estimates_max_abs_diff"] = diff(
+        second.frontend.estimates(), first.frontend.estimates())
+    out["second_pg_max_abs_diff"] = diff(second.backend.pose_estimates(),
+                                         first.backend.pose_estimates())
+    return out
+
+
+def resume_problems(reading):
+    """Where resume_continuations' readings miss the JAX package's:
+    counts unequal, or estimates beyond RESUME_ATOL (the two
+    continuations' keyframe estimates also of each other)."""
+    ref = reading["reference"]
+    problems = []
+    for key in ("estimates_max_abs_err", "pg_max_abs_err",
+                "second_estimates_max_abs_err", "second_pg_max_abs_err",
+                "second_estimates_max_abs_diff"):
+        if not reading[key] <= RESUME_ATOL:
+            problems.append(f"{key} {reading[key]}")
+    for key, ref_key in (("keyframes", "keyframes"),
+                         ("second_keyframes", "keyframes"),
+                         ("submaps", "submaps"),
+                         ("second_submaps", "second_submaps"),
+                         ("loop_closures", "closures"),
+                         ("second_loop_closures", "second_closures")):
+        if reading[key] != ref[ref_key]:
+            problems.append(f"{key} {reading[key]} != {ref[ref_key]}")
+    return problems
+
+
+def phase_resume(out_dir):
+    """resume_continuations on the card, every insertion of the two
+    grid rebuilds and the continuations, and every refinement, replayed
+    through the plain version (torch.equal each); fails on any of
+    resume_problems."""
+    rec, refines = InsertRecorder(), RefineRecorder()
+    grid_cuda.reset_launches(grid_cuda.insert_rays_cuda,
+                             refine_cuda.refine_cuda)
+    t0 = time.perf_counter()
+    with rec.active(), refines.active():
+        reading = resume_continuations(
+            "cuda", os.path.join(out_dir, "resume-port.npz"))
+    torch.cuda.synchronize()
+    # read before the replays, whose timing launches the kernels too
+    launches = grid_cuda.insert_rays_cuda.launches
+    refine_launches = refine_cuda.refine_cuda.launches
+    unequal = [k for k, (_, args, out) in enumerate(rec.calls)
+               if not torch.equal(out, insert_rays_plain(*args))]
+    replay = replay_refinements(refines.calls)
+    problems = resume_problems(reading)
+    if not rec.calls or unequal:
+        problems.append(f"{len(rec.calls)} insertions, unequal {unequal[:5]}")
+    if replay["refine_calls_unequal"]:
+        problems.append(f"refinements differ from the plain version: "
+                        f"{replay['refine_calls_unequal'][:5]}")
+    if launches != len(rec.calls):
+        problems.append(f"{launches} insertion launches for "
+                        f"{len(rec.calls)} insertions")
+    if refine_launches != len(refines.calls):
+        problems.append(f"{refine_launches} refinement launches for "
+                        f"{len(refines.calls)} refinements")
+    emit({"phase": "resume", **reading, "insertion_launches": launches,
+          "insertions_by_phase": {
+              ph: sum(1 for c in rec.calls if c[0] == ph)
+              for ph in {c[0] for c in rec.calls}},
+          "insertions_unequal": unequal,
+          "refine_launches": refine_launches,
+          "refine_calls_unequal": replay["refine_calls_unequal"],
+          "seconds": time.perf_counter() - t0, "problems": problems})
+    return {"launches": launches, "refine_launches": refine_launches,
+            "replay": replay,
+            "problems": ["resume: " + "; ".join(problems)] if problems
+            else []}
 
 
 def phase_blocked():
@@ -1947,10 +2348,14 @@ def main() -> int:
                            args.out),
             "marginal": timed("marginal", phase_full, "sim-office-marginal",
                               "marginal", args.out)}
+    runs["realtime"] = timed("realtime", phase_realtime, "sim-office", 2.0,
+                             args.out, runs["backend"]["frontend_ms"])
+    runs["resume"] = timed("resume", phase_resume, args.out)
     timed("blocked", phase_blocked)
     timed("joint_solver", phase_joint_solver)
     runs["killian"] = timed("killian", phase_full, "sim-killian", "killian",
                             args.out)
+    killian_ms = runs["killian"].pop("frontend_ms")
     if args.all_worlds:
         for world in ("sim-loops", "sim-corridor"):
             runs[world] = timed(world, phase_full, world, "world", args.out)
@@ -1958,6 +2363,9 @@ def main() -> int:
             runs[algorithm] = timed(algorithm, phase_full,
                                     f"sim-office-{algorithm}", algorithm,
                                     args.out)
+        runs["realtime_killian"] = timed(
+            "realtime_killian", phase_realtime, "sim-killian", 1.5,
+            args.out, killian_ms)
     failed = [p for r in runs.values() for p in r["problems"]]
     killian = runs["killian"]
     ms, plain_ms, bound_ms, bound_by, err = timed(
@@ -1968,9 +2376,10 @@ def main() -> int:
         "route": "cuda",
         "source": "sparse_gslam_tpu_torch/csrc/insert_rays.cu",
         "replaces": "sparse_gslam_tpu/ops/grid_pallas.py:202",
-        "launches": killian["launches"],
+        "launches": launches + sum(v["launches"] for v in runs.values()),
         "launches_by_path": {"frontend_only": launches, **{
             k: v["launches"] for k, v in runs.items()}},
+        "timed_launches": killian["launches"],
         "max_abs_err": max(err, row["max_abs_err"]),
         "matched": row["equal"],
         "tolerance": "bit-exact (torch.equal)",
@@ -1989,10 +2398,12 @@ def main() -> int:
         "replaces_what": "the XLA programs jit(refine_pose_cov) (:630) "
                          "and jit(refine_pose_cov_two_stage) (:598); no "
                          "Pallas kernel",
-        "launches": killian["refine_launches"],
+        "launches": sum(v["refine_launches"] for v in runs.values()),
         "launches_by_path": {k: v["refine_launches"]
                              for k, v in runs.items()},
-        "max_abs_err": max([rp["refine_max_abs_err"]]
+        "timed_launches": killian["refine_launches"],
+        "max_abs_err": max([v["replay"]["refine_max_abs_err"]
+                            for v in runs.values()]
                            + [r["max_abs_err"] for r in refine_rows]),
         "matched": all(r["equal"] for r in refine_rows),
         "tolerance": "bit-exact (torch.equal)",
@@ -2017,4 +2428,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        for pool in _REPLAY_POOL:
+            pool.shutdown(cancel_futures=True)
+    sys.exit(code)

@@ -15,7 +15,10 @@ per-keyframe pins, chain edges, DCS pose graph, refine_map, the final
 joint landmark + pose solve, the marginal chain information), the smc,
 smf and hough line extractors, the six log providers, its `.result`
 trajectory, relations ATE, closure precision/recall and the global
-occupancy map. What is left is listed in ROADMAP.md.
+occupancy map; the runner's simulated-realtime mode, checkpoints in the
+JAX package's layout, live maps and profiler traces; the timing,
+error-log, world-generator, wall-follower and Crazyflie tools. What is
+left is listed in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

@@ -9,12 +9,12 @@
 //
 // Design: one block per refinement problem, a fixed block of T = 512
 // threads (rpx::THREADS) whatever the padded point count (N = 256, 512,
-// 1024, 2048 or 4096, the sizes the callers pad to). Thread tid owns
+// 1024, 2048, 4096 or 8192, the sizes the callers pad to). Thread tid owns
 // points tid, tid + T, ...: reads of points and mask are coalesced. Each
 // GN step evaluates the rows and Jacobian once, at the trial pose (16
 // bicubic taps per point from the float32 grid in device memory), into
 // dynamic shared memory (J's three columns and r, 16 (N + 4) bytes,
-// 65.6 KB at N = 4096); the reductions then run in exactly the order of
+// 65.6 KB at N = 4096, 131 KB at 8192); the reductions then run in exactly the order of
 // XLA's CPU code: one thread per J^T J entry (six, mirrored) walking the
 // N + 3 rows as one FMA chain, one per entry of the J^T r gemv (its
 // eight lanes and remainder), the other threads the sum of squares'

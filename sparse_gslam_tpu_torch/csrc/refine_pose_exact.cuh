@@ -30,9 +30,10 @@ namespace rpx {
 
 // padded points a refinement takes: the sizes the callers pad to
 // (256 * 2^k), up to refine_exact.MAX_POINTS
-constexpr int NMAX = 4096;
+constexpr int NMAX = 8192;
 RPX_HD bool takes_points(int n) {
-  return n == 256 || n == 512 || n == 1024 || n == 2048 || n == NMAX;
+  return n == 256 || n == 512 || n == 1024 || n == 2048 || n == 4096 ||
+         n == NMAX;
 }
 // threads of the block, whatever N is (scripts/refine_ablation.py timed
 // 128, 256 and 512; PERF.md); the reductions' roles need four warps

@@ -80,27 +80,43 @@ def write_png(path: str, rgb: np.ndarray) -> None:
         f.write(chunk(b"IEND", b""))
 
 
-def map_image(probs, estimates=None, origin=None, resolution=None):
+def _draw_line(img, a, b, color):
+    """Colour the cells of img (indexed [x, y]) on the segment from cell
+    coordinates a to b."""
+    n = int(np.ceil(np.abs(b - a).max())) + 1
+    ts = np.linspace(0.0, 1.0, n)[:, None]
+    c = np.floor(a + (b - a) * ts).astype(np.int64)
+    keep = ((c >= 0) & (c < np.array(img.shape[:2]))).all(axis=1)
+    img[c[keep, 0], c[keep, 1]] = color
+
+
+def map_image(probs, estimates=None, origin=None, resolution=None,
+              segments=None, seg_color=(31, 119, 180)):
     """(H, W, 3) uint8 picture of a grid: free white, occupied black,
     unknown grey, x to the right and y up, with the trajectory drawn in
-    red over it."""
+    red over it and `segments` ((a, b) world-frame point pairs) in
+    seg_color."""
     arr = np.asarray(probs, dtype=np.float64)
     gray = np.where(arr > 0, 1.0 - arr, 0.5)
     img = np.repeat(np.round(gray * 255.0)[:, :, None], 3, axis=2)
     img = img.astype(np.uint8)  # indexed [x, y]
-    if estimates is not None and origin is not None and resolution:
-        est = np.asarray(estimates, dtype=np.float64)
-        cells = (est[:, :2] - np.asarray(origin, np.float64)) / resolution
-        for a, b in zip(cells[:-1], cells[1:]):
-            n = int(np.ceil(np.abs(b - a).max())) + 1
-            ts = np.linspace(0.0, 1.0, n)[:, None]
-            c = np.floor(a + (b - a) * ts).astype(np.int64)
-            keep = ((c >= 0) & (c < np.array(arr.shape))).all(axis=1)
-            img[c[keep, 0], c[keep, 1]] = (255, 0, 0)
+    if origin is not None and resolution:
+        o = np.asarray(origin, np.float64)
+
+        def cell(p):
+            return (np.asarray(p, np.float64)[..., :2] - o) / resolution
+
+        if estimates is not None:
+            cells = cell(estimates)
+            for a, b in zip(cells[:-1], cells[1:]):
+                _draw_line(img, a, b, (255, 0, 0))
+        for a, b in segments or ():
+            _draw_line(img, cell(a), cell(b), seg_color)
     return img.transpose(1, 0, 2)[::-1]  # rows = y, top row = max y
 
 
 def save_map_png(path, probs, estimates=None, origin=None,
-                 resolution=None):
-    """PNG dump with optional trajectory overlay."""
-    write_png(path, map_image(probs, estimates, origin, resolution))
+                 resolution=None, segments=None, seg_color=(31, 119, 180)):
+    """PNG dump with optional trajectory and segment overlays."""
+    write_png(path, map_image(probs, estimates, origin, resolution,
+                              segments, seg_color))

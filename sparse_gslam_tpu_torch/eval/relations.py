@@ -44,6 +44,14 @@ def load_relations(path: str):
     return t1, t2, gt
 
 
+def save_relations(path: str, t1, t2, gt_se2):
+    with open(path, "w") as f:
+        for a, b, g in zip(t1, t2, gt_se2):
+            f.write(
+                f"{a:.6f} {b:.6f} {g[0]:.9f} {g[1]:.9f} 0 0 0 {g[2]:.9f}\n"
+            )
+
+
 @dataclasses.dataclass
 class ATEResult:
     trans_mean: float

@@ -32,6 +32,7 @@ ground-truth diagnostics; no configuration selects them on this path.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import math
 import os
@@ -290,22 +291,31 @@ class SubmapLoopCloser:
         return map_pose
 
     # --------------------------------------------------------------------
-    def match(self) -> bool:
+    def match(self, lock=None) -> bool:
         """Find + apply one loop closure (submap_loop_closer.cpp:118-297).
         Returns True if a closure was accepted. Three phases as in the
-        reference's lock discipline: snapshot, search, apply."""
+        reference's lock discipline: snapshot, search, apply.
+
+        lock: optional mutex guarding frontend state (the realtime
+        mode's concurrent frontend). As in the reference's shared-lock
+        discipline (submap_loop_closer.cpp:122-157), state is
+        snapshotted under the lock, the expensive candidate matching
+        runs unlocked, and the apply phase locks again."""
+        guard = lock if lock is not None else contextlib.nullcontext()
         _t = _time.perf_counter()
-        snap = self._match_snapshot()
+        with guard:
+            snap = self._match_snapshot()
         self.prof["match_snapshot"] += _time.perf_counter() - _t
         result = None
         if snap is not None:
             _t = _time.perf_counter()
-            result = self._match_search(snap)
+            result = self._match_search(snap)  # runs unlocked
             self.prof["match_search"] += _time.perf_counter() - _t
         if result is None:
             return False
         _t = _time.perf_counter()
-        self._match_apply(snap, result)
+        with guard:
+            self._match_apply(snap, result)
         self.prof["match_apply"] += _time.perf_counter() - _t
         return True
 

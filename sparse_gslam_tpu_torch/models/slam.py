@@ -6,11 +6,15 @@ Per frame: accumulate odometry delta -> beam-subsample the full scan
 -> frontend tick; every match_interval frames the backend precompute +
 match runs (models/backend.py). Timing of the frontend and backend calls
 streams to .ftime/.btime like the reference (log_runner.cpp:146-158).
-Port of sparse_gslam_tpu/models/slam.py without the simulated-realtime
-mode (ROADMAP.md).
+Port of sparse_gslam_tpu/models/slam.py, with its simulated-realtime
+mode (run_realtime: the frontend paced by the frame timestamps, the
+backend on a thread of its own; on the card each thread launches on a
+CUDA stream of its own).
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 import time as _time
 
 import numpy as np
@@ -46,6 +50,13 @@ class SlamSystem:
         self.timing = None  # optional TimingWriter
         self.frontend_times: list[float] = []
         self.backend_times: list[float] = []
+        # graph lock for the simulated-realtime mode: the reference
+        # protects its two graphs with shared mutexes
+        # (include/graphs.h:21,32); functional state needs only mutual
+        # exclusion between the frontend tick and the backend snapshot
+        self.lock = threading.Lock()
+        # what the last run_realtime measured (RealtimeStats)
+        self.realtime = None
 
     # ------------------------------------------------------------------
     def _subsample(self, full_range: np.ndarray):
@@ -111,6 +122,94 @@ class SlamSystem:
         if self.timing:
             self.timing.dataset(frame.time)
         self.frame_idx += 1
+
+    # ------------------------------------------------------------------
+    def run_realtime(self, frames, rate: float = 1.0):
+        """Simulated-realtime replay (log_runner.cpp:214-239): the
+        frontend paces itself by dataset timestamps / rate while a
+        free-running backend thread computes loop closures every 10 ms,
+        then final_cleanup.
+
+        The backend thread calls precompute() under self.lock, then
+        match(lock=self.lock), which holds the lock only for its snapshot
+        and apply phases. On a CUDA device the backend thread launches
+        on a stream of its own, so that the frontend's once-per-iteration
+        host reads do not wait for its insertions, refinements and
+        solves; what it hands the frontend under the lock is numpy.
+        final_cleanup runs on that stream as well (the submap grids were
+        made there), after the frontend's stream, and the caller's
+        stream waits for it. An exception in the backend thread ends the
+        frame loop and is raised here. What the run measured is left in
+        self.realtime (RealtimeStats)."""
+        backend = self.backend
+        stream = side_stream(self.device)
+        caller = (torch.cuda.current_stream(self.device)
+                  if stream is not None else None)
+        stats = RealtimeStats(rate=rate)
+        self.realtime = stats
+        running = True
+        failure = []
+
+        def lc_loop():
+            try:
+                with stream_scope(stream):
+                    while running:
+                        if backend is not None:
+                            t0 = _time.perf_counter()
+                            # precompute snapshots under the lock; match()
+                            # takes the lock only for its snapshot and
+                            # apply phases
+                            with self.lock:
+                                backend.precompute()
+                            backend.match(lock=self.lock)
+                            stats.backend_ticks.append(
+                                _time.perf_counter() - t0)
+                        _time.sleep(0.01)
+            except Exception as e:  # raised again by the frame loop
+                failure.append(e)
+
+        t = threading.Thread(target=lc_loop, name="slam-backend",
+                             daemon=True)
+        if stream is not None:
+            stream.wait_stream(caller)  # e.g. grids rebuilt by a resume
+        t.start()
+        prev_time = None
+        t_start = first_time = None
+        try:
+            for frame in frames:
+                if failure:
+                    break
+                t0 = _time.perf_counter()
+                if t_start is None:
+                    t_start, first_time = t0, frame.time
+                stats.note_frame(t0 - t_start, (frame.time - first_time)
+                                 / rate, None if prev_time is None
+                                 else (frame.time - prev_time) / rate)
+                with self.lock:
+                    # frontend only: the backend runs on its own thread
+                    self.backend = None
+                    try:
+                        self.process_frame(frame)
+                    finally:
+                        self.backend = backend
+                if prev_time is not None:
+                    sleep = (frame.time - prev_time) / rate - (
+                        _time.perf_counter() - t0
+                    )
+                    if sleep > 0:
+                        _time.sleep(sleep)
+                prev_time = frame.time
+        finally:
+            running = False
+            t.join()
+        if failure:
+            raise failure[0]
+        with stream_scope(stream):
+            if stream is not None:
+                stream.wait_stream(caller)
+            self.final_cleanup()
+        if stream is not None:
+            caller.wait_stream(stream)
 
     # ------------------------------------------------------------------
     def final_cleanup(self):
@@ -183,3 +282,49 @@ def steady_stats(times):
         return 0.0, 0.0, 0
     a = np.asarray(times)
     return float(a.mean()), float(a.max()), len(times)
+
+
+def side_stream(device):
+    """A CUDA stream of `device` for a thread of its own, or None on the
+    CPU. Both kernels are built first, so that no thread waits inside a
+    paced loop for a first nvcc build."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    from ..ops import grid_cuda, refine_cuda
+
+    grid_cuda.load()
+    refine_cuda.load()
+    return torch.cuda.Stream(device)
+
+
+def stream_scope(stream):
+    """torch.cuda.stream(stream) for the calling thread, or nothing for
+    None (the CPU)."""
+    if stream is None:
+        return contextlib.nullcontext()
+    return torch.cuda.stream(stream)
+
+
+class RealtimeStats:
+    """What one run_realtime measured: per frame the lag of its start
+    behind its paced time (its timestamp less the first one's, over
+    rate, from the first frame's start) and whether it was late (the lag
+    above one period, the gap to the previous timestamp over rate); the
+    seconds of each completed backend tick (precompute + match)."""
+
+    def __init__(self, rate: float):
+        self.rate = rate
+        self.lags: list[float] = []
+        self.late = 0
+        self.backend_ticks: list[float] = []
+
+    def note_frame(self, started: float, due: float, period):
+        lag = started - due
+        self.lags.append(lag)
+        if period is not None and lag > period:
+            self.late += 1
+
+    @property
+    def frames(self) -> int:
+        return len(self.lags)

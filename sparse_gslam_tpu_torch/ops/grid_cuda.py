@@ -8,8 +8,10 @@ use into a shared library with a plain C interface, cached under
 sparse_gslam_tpu_torch/_build/ by a hash of its source, the headers it
 includes and the flags, and loaded with ctypes. `insert_rays_cuda`
 checks its inputs, launches the kernel once on the current stream into
-a new output and counts its launches in `insert_rays_cuda.launches`.
-Its plain version is ops/grid.py:insert_rays_plain.
+a new output and counts its launches in `insert_rays_cuda.launches`
+(and by thread name in `insert_rays_cuda.launches_by_thread`; count_launch
+adds under a lock, since the realtime mode launches from several
+threads). Its plain version is ops/grid.py:insert_rays_plain.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -100,6 +103,34 @@ def build() -> dict:
     """Compile the insertion kernel's library if its cached build is
     missing (build_library)."""
     return build_library(SOURCE, NVCC_FLAGS, "insert_rays")
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches` and to the calling thread's entry of
+    `wrapper.launches_by_thread`, under a lock: kernel wrappers are
+    called from several threads at once."""
+    name = threading.current_thread().name
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        wrapper.launches_by_thread[name] = (
+            wrapper.launches_by_thread.get(name, 0) + 1)
+
+
+def reset_launches(*wrappers) -> None:
+    """Set the wrappers' launch counts to 0."""
+    with _COUNT_LOCK:
+        for w in wrappers:
+            w.launches = 0
+            w.launches_by_thread = {}
+
+
+def load() -> None:
+    """Build (unless cached) and load the kernel's library, so that no
+    caller waits for the first build at its first launch."""
+    _library()
 
 
 @functools.lru_cache(maxsize=None)
@@ -184,8 +215,8 @@ def insert_rays_cuda(
     if rc != 0:
         raise RuntimeError(f"insert_rays kernel launch failed: CUDA error "
                            f"{rc}")
-    insert_rays_cuda.launches += 1
+    count_launch(insert_rays_cuda)
     return out
 
 
-insert_rays_cuda.launches = 0
+reset_launches(insert_rays_cuda)

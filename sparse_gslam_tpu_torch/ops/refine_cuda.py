@@ -9,7 +9,8 @@ at first use into sparse_gslam_tpu_torch/_build/
 multiply-adds are the header's explicit ones, and loaded with ctypes.
 It replaces no Pallas kernel: the JAX package runs this refinement as
 one XLA program per call, and the kernel rounds as that program does on
-the CPU (ops/refine_exact.py is its plain version). `refine_cuda.launches` counts its launches.
+the CPU (ops/refine_exact.py is its plain version). `refine_cuda.launches`
+counts its launches (grid_cuda.count_launch: under a lock, and by thread).
 The kernel ends a stage at the first GN step that every later step
 would repeat; the plain version runs them all, with the same bits.
 The same block program runs on the host through csrc/refine_pose_host.cpp
@@ -37,7 +38,7 @@ GXX_FLAGS = ("-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
              "-pthread")
 # padded query points a launch takes: the counts the callers pad to
 # (256 * 2^k), as the header's takes_points
-POINTS = (256, 512, 1024, 2048, MAX_POINTS)
+POINTS = (256, 512, 1024, 2048, 4096, MAX_POINTS)
 
 
 def build() -> dict:
@@ -68,6 +69,11 @@ def host_library():
     return lib
 
 
+def load() -> None:
+    """Build (unless cached) and load the kernel's library."""
+    _library()
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = ctypes.CDLL(build()["path"])
@@ -81,7 +87,12 @@ def _library():
 
 @functools.lru_cache(maxsize=None)
 def _y0(device) -> torch.Tensor:
-    return torch.from_numpy(rsqrtss_table()).to(device)
+    """The rsqrtss table on `device`, kept for every later launch: the
+    copy is waited for here, since launches on other streams (the
+    realtime mode's threads) read it."""
+    y0 = torch.from_numpy(rsqrtss_table()).to(device)
+    torch.cuda.current_stream(device).synchronize()
+    return y0
 
 
 def refine_cuda(stages, points, point_valid, init_pose,
@@ -127,8 +138,8 @@ def refine_cuda(stages, points, point_valid, init_pose,
     if rc != 0:
         raise RuntimeError(f"refine_pose kernel launch failed: CUDA error "
                            f"{rc}")
-    refine_cuda.launches += 1
+    grid_cuda.count_launch(refine_cuda)
     return pose, cov, probs, steps
 
 
-refine_cuda.launches = 0
+grid_cuda.reset_launches(refine_cuda)

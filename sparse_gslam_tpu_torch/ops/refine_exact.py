@@ -46,7 +46,7 @@ F32 = np.float32
 PMIN = F32(0.1)
 
 # padded query points the refinement takes: the rsqrtss table's length
-MAX_POINTS = 4096
+MAX_POINTS = 8192
 # rsqrtss(n) for n = 1..MAX_POINTS on x86 (bits >> 11, five hex digits
 # each; the approximation has 12 significant bits), as XLA's 20 / sqrt(n)
 # starts from it

@@ -129,7 +129,7 @@ def refine_world(G, res, n=512):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096])
+@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096, 8192])
 def test_refine_kernel_matches_plain_on_cuda(n):
     """The refinement kernel (one launch per call) against its plain
     version on the same CUDA tensors, torch.equal, at every padded point

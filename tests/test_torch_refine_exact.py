@@ -3,9 +3,9 @@
 - The plain version (sparse_gslam_tpu_torch/ops/refine_exact.py, behind
   ops/matching.py refine_pose / refine_pose_cov /
   refine_pose_cov_two_stage on the CPU) against the JAX package's
-  compiled programs on 58 seeded cases: a room and a corridor (whose
+  compiled programs on 64 seeded cases: a room and a corridor (whose
   J^T J is near-singular along the corridor), grids at 0.1 m and
-  0.05 m, every padded point count the callers use (N = 256 to 4096),
+  0.05 m, every padded point count the callers use (N = 256 to 8192),
   one stage, the two-stage variants (dilated score grid, then the raw
   grid or the 0.05 m high-res grid) and refine_pose alone.
   np.array_equal on pose, covariance and probabilities. XLA's J^T J and
@@ -153,7 +153,7 @@ def query(world, n_pad, seed):
 
 
 # (program, world, grid keys of the stages, N, seed): 40 cases at the
-# sim worlds' N, 18 at the larger ones (more beams, e.g. 60)
+# sim worlds' N, 24 at the larger ones (more beams, e.g. 60)
 CASES = (
     [("cov", w, (res,), n, s) for w in WALLS for res in (0.1, 0.05)
      for n in (256, 512) for s in range(3)]
@@ -161,7 +161,7 @@ CASES = (
        for s in range(2)]
     + [("two", w, ("score", 0.1), 256, s) for w in WALLS for s in range(2)]
     + [("pose", w, (0.1,), 256, s) for w in WALLS for s in range(2)]
-    + [(prog, w, keys, n, s) for n in (1024, 2048, 4096)
+    + [(prog, w, keys, n, s) for n in (1024, 2048, 4096, 8192)
        for prog, w, keys, s in (
            ("cov", "room", (0.1,), 0), ("cov", "corridor", (0.05,), 1),
            ("two", "room", ("score", 0.05), 2),
@@ -357,6 +357,8 @@ def header_refine(lib, stages, pts, valid, init, want_cov=True, rc=0):
     ("two", "room", ("score", 0.1), 2048, 7),
     ("two", "room", ("score", 0.05), 4096, 2),
     ("cov", "corridor", (0.05,), 4096, 1),
+    ("two", "corridor", ("score", 0.1), 8192, 3),
+    ("cov", "room", (0.05,), 8192, 0),
 ])
 def test_header_block_program_bit_equal_to_plain(worlds, host_lib, program,
                                                  world, keys, n, seed):
@@ -430,16 +432,16 @@ def test_header_early_stop_bit_equal_to_all_steps(worlds, host_lib, world,
         np.testing.assert_array_equal(got[0], init)
 
 
-@pytest.mark.parametrize("n", [32, 128, 224, 288, 384, 5000, 8192])
+@pytest.mark.parametrize("n", [32, 128, 224, 288, 384, 5000, 16384])
 def test_kernel_refuses_other_point_counts(worlds, host_lib, n):
     """The launcher, its host build and the wrapper take the counts the
-    callers pad to, 256 * 2^k up to 4096 (each runs in the tests
+    callers pad to, 256 * 2^k up to 8192 (each runs in the tests
     above), and no other."""
     stages = _stages(worlds, "room", (0.1,))
     pts = np.zeros((n, 2), F32)
     header_refine(host_lib, stages, pts, np.ones(n, bool),
                   np.zeros(3, F32), rc=1)
-    assert refine_cuda.POINTS == (256, 512, 1024, 2048, 4096)
+    assert refine_cuda.POINTS == (256, 512, 1024, 2048, 4096, 8192)
     with pytest.raises(ValueError, match=f"N={n} padded points"):
         refine_cuda.refine_cuda(
             [(torch.tensor(g), torch.tensor(o), r) for g, o, r in stages],
@@ -447,13 +449,13 @@ def test_kernel_refuses_other_point_counts(worlds, host_lib, n):
             torch.zeros(1, 3))
 
 
-@pytest.mark.parametrize("n", [4097, 8192])
+@pytest.mark.parametrize("n", [8193, 16384])
 def test_plain_refuses_more_than_max_points(worlds, n):
-    """Above 4096 padded points (no configuration pads so far) the plain
+    """Above 8192 padded points (no configuration pads so far) the plain
     version raises, naming N and the limit, as the kernel's wrapper
     does."""
     stages = _stages(worlds, "room", (0.1,))
-    with pytest.raises(ValueError, match=f"N={n} padded points.*4096"):
+    with pytest.raises(ValueError, match=f"N={n} padded points.*8192"):
         port_refine("cov", stages, np.zeros((n, 2), F32), np.ones(n, bool),
                     np.zeros(3, F32))
 
@@ -468,12 +470,12 @@ def test_header_sincosf_matches_libm(host_lib):
 
 
 def test_rsqrtss_table_is_the_cpus(tmp_path):
-    """The table is x86 rsqrtss of n = 1..4096 (checked where the CPU is
+    """The table is x86 rsqrtss of n = 1..8192 (checked where the CPU is
     one), and occupied_weight refines it as XLA does."""
     table = rx.rsqrtss_table()
-    assert table.shape == (4096,) and table.dtype == np.float32
+    assert table.shape == (8192,) and table.dtype == np.float32
     assert len(table) == rx.MAX_POINTS == refine_cuda.POINTS[-1]
-    rel = np.abs(table * np.sqrt(np.arange(1, 4097)) - 1)
+    rel = np.abs(table * np.sqrt(np.arange(1, 8193)) - 1)
     assert rel.max() < 1.5 * 2.0**-12
     gcc = shutil.which("gcc")
     if platform.machine() not in ("x86_64", "AMD64") or gcc is None:
@@ -481,7 +483,7 @@ def test_rsqrtss_table_is_the_cpus(tmp_path):
     src = tmp_path / "rsq.c"
     src.write_text(
         "#include <immintrin.h>\n#include <stdio.h>\n#include <string.h>\n"
-        "int main(void){for(int n=1;n<=4096;n++){float y=_mm_cvtss_f32("
+        "int main(void){for(int n=1;n<=8192;n++){float y=_mm_cvtss_f32("
         "_mm_rsqrt_ss(_mm_set_ss((float)n)));unsigned u;memcpy(&u,&y,4);"
         "printf(\"%u\\n\",u);}return 0;}\n")
     exe = tmp_path / "rsq"
@@ -493,7 +495,7 @@ def test_rsqrtss_table_is_the_cpus(tmp_path):
     assert rx.occupied_weight(0) == rx.occupied_weight(1) == F32(20)
 
 
-@pytest.mark.parametrize("K", [259, 515, 1027, 2051, 4099])
+@pytest.mark.parametrize("K", [259, 515, 1027, 2051, 4099, 8195])
 def test_gram_and_gemv_bit_equal_to_xla(K):
     """XLA's J^T J and J^T r with J^T laid out (3, K) as in the compiled
     refinement, K = N + 3 rows, against the plain version's chains: one

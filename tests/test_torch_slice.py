@@ -3,13 +3,16 @@ sim-office through both frontend-only SlamSystems on the CPU (float64),
 the global map through both render_maps, and the port's runner, with
 and without the backend, in a process of its own that never imports
 jax (nor does importing the blocked pose-graph solver, its partition,
-the synthetic graphs, the native oracle or the refinement kernel's
-wrapper there). (The backend-on systems are compared in test_torch_backend.py.)
+the synthetic graphs, the native oracle, the refinement kernel's
+wrapper, the checkpoint, live-view, timing, cli, simulator, wall
+follower or Crazyflie modules there). (The backend-on systems are compared in test_torch_backend.py.)
 
 Tolerance for keyframe estimates: atol=1e-8. The two LM solvers sum in
 different orders (and the port's long-window path uses cyclic
 reduction), ~1e-15 relative per operation, compounded over the run's
-incremental solves."""
+incremental solves. (tests/test_torch_live.py runs the runner's
+realtime, live-view, checkpoint and resume flags in a process of its
+own under the same check.)"""
 import os
 import shutil
 import subprocess
@@ -111,6 +114,13 @@ def test_runner_subprocess_imports_no_jax(tmp_path, case):
         "import sparse_gslam_tpu_torch.ops.lines_hough\n"
         "import sparse_gslam_tpu_torch.io.rosbag\n"
         "import sparse_gslam_tpu_torch.interop\n"
+        "import sparse_gslam_tpu_torch.utils.checkpoint\n"
+        "import sparse_gslam_tpu_torch.eval.live_view\n"
+        "import sparse_gslam_tpu_torch.eval.timing\n"
+        "import sparse_gslam_tpu_torch.eval.cli\n"
+        "import sparse_gslam_tpu_torch.eval.simulate\n"
+        "import sparse_gslam_tpu_torch.models.wall_follower\n"
+        "import sparse_gslam_tpu_torch.io.crazyflie\n"
         f"runner.main(['--dataset-dir', {str(data)!r}, '--dataset-name', "
         f"'sim-office', '--device', 'cpu', *{flags!r}, '--max-frames', "
         f"'{frames}', '--eval', '--map-png', {str(png)!r}])\n"
