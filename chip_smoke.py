@@ -68,6 +68,21 @@ their failures fail it after the kernels line):
 10. marginal -- as phase 6 with chain_info_mode: marginal (chain edges
    carry Frontend.relative_chain_info), held in full against
    data/sim-office-marginal.*.
+10a. accel -- as phase 6 with the runner's --accel-branch (the JAX
+   package's accelerator branch: the fused matcher on cached spectra,
+   the device pin batches), held in full against
+   data/sim-office-accel.* (the JAX run: scripts/jax_accel_branch.py),
+   with the fused matcher's queries and calls (pages); then one line,
+   accel_split, with its backend split (match_search, match_correlate,
+   kf_stack, kf_window, kf_accept, match_apply, final cleanup, frame
+   loop) beside phase 6's.
+10b. fused -- fused_match, match_candidates_fused (18 candidates: two
+   chunks; at K = 256 and, to page, at FUSED_PAGE_K) and pin_eval_batch
+   (8 pins, 6 live) on seeded walls at sim-office's sizes, on the card
+   against the same calls through the port on the host CPU (score,
+   bounds and covariance tolerances FUSED_*, PIN_WCOV_ATOL; pose,
+   candidate, pins' argmax and refinement equal), with each call's ms
+   on the card and the fused_match calls per query.
 11. realtime -- sim-office through the runner's simulated-realtime mode
    (--realtime --rate 2 --map-every 100 --live-view 2: the frontend
    paced at twice the log's 5 Hz, the backend thread and the live-view
@@ -101,8 +116,10 @@ their failures fail it after the kernels line):
    in full but for the two printed numbers WORLDS exempts.
 16. world  -- with --all-worlds, sim-loops and sim-corridor as phase 6,
    sim-office with algorithm: smf and algorithm: hough (phases smf
-   and hough, held against data/sim-office-{smf,hough}.*), and
-   sim-killian in realtime at rate 1.5 (as phase 11).
+   and hough, held against data/sim-office-{smf,hough}.*),
+   sim-killian in realtime at rate 1.5 (as phase 11), and the 60-beam
+   sim-office with --accel-branch (beams60_accel, held against
+   data/sim-office-beams60-accel.*; its accel_split beside phase 8's).
 17. kernels -- one line per hand-written kernel: launches summed over
    every path's run (launches_by_path has each, counted from 0 before
    it), error against the plain version, and its time, the plain
@@ -238,6 +255,51 @@ WORLDS = {
         "counts": {"frames": 663, "keyframes": 286, "landmarks": 105,
                    "submaps": 26, "loop_closures": 26, "pruned": 0,
                    "local_edges": 28, "kf_pins": 48},
+        "launches": {"precompute": 52, "rebuild_grids": 52, "map": 1},
+    },
+    # sim-office down the JAX package's accelerator branch (runner
+    # --accel-branch; the JAX run: scripts/jax_accel_branch.py, which
+    # makes jax.default_backend() answer "gpu" on the CPU): the rotation
+    # count frozen at range_max, the fused matcher on cached spectra,
+    # the device pin batches
+    "sim-office-accel": {
+        "dataset": "sim-office",
+        "accel": True,
+        "reference": "sim-office-accel",
+        "ate": "ATE trans 0.2243 +- 0.3042 m, rot 1.793 +- 1.598 deg "
+               "(391 relations)",
+        "backend": "backend: 26 submaps, 6 closures (1 pruned)",
+        "closures": "closures: precision 1.00 (6/6 true), ridge-aware "
+                    "precision 1.00 (6/6), recall 1.00 (2/2 revisit "
+                    "segments detected)",
+        "counts": {"frames": 663, "keyframes": 286, "landmarks": 90,
+                   "submaps": 26, "loop_closures": 6, "pruned": 1,
+                   "local_edges": 15, "kf_pins": 6},
+        "launches": {"precompute": 52, "rebuild_grids": 52, "map": 1},
+    },
+    "sim-office-beams60-accel": {
+        # the 60-beam sim-office down the accelerator branch. Its parity
+        # with the JAX run is reported, not held (ROADMAP.md section
+        # 3.4): the closure covariances and the pins' refinement round
+        # otherwise than the JAX program, and this run's 47 pins carry
+        # that into the pose graph until a query's cells cross an edge
+        # (H100: decision line 65 apart, 26 closures against 25). Held:
+        # every insertion and refinement, the launches and "held_counts"
+        "dataset": "sim-office",
+        "accel": True,
+        "parity": "reported",
+        "held_counts": ("frames", "keyframes", "landmarks", "submaps"),
+        "slam_yaml": {"scan_size": "60", "multicloud_size": "960"},
+        "reference": "sim-office-beams60-accel",
+        "ate": "ATE trans 0.0614 +- 0.0665 m, rot 0.595 +- 0.473 deg "
+               "(391 relations)",
+        "backend": "backend: 26 submaps, 25 closures (0 pruned)",
+        "closures": "closures: precision 1.00 (25/25 true), ridge-aware "
+                    "precision 1.00 (25/25), recall 1.00 (2/2 revisit "
+                    "segments detected)",
+        "counts": {"frames": 663, "keyframes": 286, "landmarks": 105,
+                   "submaps": 26, "loop_closures": 25, "pruned": 0,
+                   "local_edges": 28, "kf_pins": 47},
         "launches": {"precompute": 52, "rebuild_grids": 52, "map": 1},
     },
     # sim-office with one option of the JAX package's config added to
@@ -398,6 +460,8 @@ MISS_SCORE_ATOL = 1e-5
 # the 6-decimal file format can turn a 1e-12 difference into one unit
 # of its last digit (hence the 1e-9 slack)
 RESULT_ATOL = 1e-6 + 1e-9
+# each replayed refinement is timed this many times, the least kept
+REPLAY_TIMINGS = 3
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and
 # float32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -1113,7 +1177,9 @@ def replay_refinements(calls):
     replay_pool's processes: the plain version computes on the host
     whatever the device), the same call through the kernel's wrapper for
     the GN steps its stages ran, and the call through the kernel again,
-    timed on the card (one launch behind a sleeping kernel). Returns the
+    timed on the card (one launch behind a sleeping kernel, the least of
+    REPLAY_TIMINGS such timings: a launch the host enqueues after the
+    sleep ended is timed with the host's delay). Returns the
     readings summed over the calls and split by padded point count N;
     the plain time (each call's own seconds in its process) includes
     TapRecorder's appends (a list append per evaluation), not its cell
@@ -1139,8 +1205,10 @@ def replay_refinements(calls):
         err = max(err, max(float((a - b).abs().max())
                            for a, b in zip(out, ref)))
         steps = kernel_refine(stages, query, iterations, want_cov)[1].tolist()
-        call_ms = time_ms(lambda: run_refine(stages, query, iterations,
-                                             want_cov), 1, warmup=0)
+        call_ms = min(
+            time_ms(lambda: run_refine(stages, query, iterations, want_cov),
+                    1, warmup=0)
+            for _ in range(REPLAY_TIMINGS))
         ms += call_ms
         cells += n_cells
         b, bound_by, c = refine_bound(len(stages), n, n_cells,
@@ -1392,6 +1460,33 @@ def compare_run(world, text, result_path):
     }
 
 
+class FusedQueryCounter:
+    """Counts the fused matcher's candidate-set queries
+    (match_candidates_fused calls) and the fused_match calls they made
+    (matching.FUSED_CALLS, its pages), while active."""
+
+    def __init__(self):
+        self.queries = 0
+        self.calls = 0
+        self._orig = matching_mod.match_candidates_fused
+
+    def _match(self, *a, **k):
+        n = matching_mod.FUSED_CALLS
+        try:
+            return self._orig(*a, **k)
+        finally:
+            self.queries += 1
+            self.calls += matching_mod.FUSED_CALLS - n
+
+    @contextlib.contextmanager
+    def active(self):
+        matching_mod.match_candidates_fused = self._match
+        try:
+            yield self
+        finally:
+            matching_mod.match_candidates_fused = self._orig
+
+
 class SolveRecorder:
     """Wraps the backend's two pose-graph solvers, its _solve and its
     match() to keep, for every solve, the match tick it ran in (1-based
@@ -1594,17 +1689,19 @@ def phase_full(world, phase, out_dir):
         refines = RefineRecorder()
         cleanup = CleanupRecorder()
         tee = Tee(sys.stdout)
+        queries = FusedQueryCounter()
         os.environ["SLAM_LOG_MATCHES"] = "1"
         grid_cuda.reset_launches(grid_cuda.insert_rays_cuda,
                                  refine_cuda.refine_cuda)
         t0 = time.perf_counter()
         try:
             with rec.active(), solves.active(), refines.active(), \
-                    cleanup.active(), contextlib.redirect_stdout(tee):
+                    cleanup.active(), queries.active(), \
+                    contextlib.redirect_stdout(tee):
                 r = runner.run([
                     "--dataset-dir", data, "--dataset-name", dataset,
                     "--eval", "--map-png", png, "--device", "cuda",
-                ])
+                ] + (["--accel-branch"] if ref.get("accel") else []))
             torch.cuda.synchronize()
         finally:
             del os.environ["SLAM_LOG_MATCHES"]
@@ -1649,6 +1746,10 @@ def phase_full(world, phase, out_dir):
          solve_info["blocked_solves_held_native"]) = solves.native_error()
         solve_info["blocked_native_atol"] = RUN_BLOCKED_NATIVE_ATOL
         problems = cmp.pop("problems")
+        if ref.get("parity") == "reported":
+            # compare_run's readings stay in the line; only the kernels'
+            # replays, the launches and held_counts are held
+            cmp["parity_problems"], problems = problems, []
         if (launches != sum(ref["launches"].values())
                 or by_phase != ref["launches"]):
             problems.append(f"{launches} insertion launches {by_phase}, "
@@ -1662,7 +1763,7 @@ def phase_full(world, phase, out_dir):
         if refine_unequal:
             problems.append(f"refinements differ from the plain version: "
                             f"{refine_unequal[:5]}")
-        for key in counts:
+        for key in ref.get("held_counts", counts):
             if counts[key] != ref["counts"][key]:
                 problems.append(f"{key} {counts[key]} != "
                                 f"{ref['counts'][key]}")
@@ -1687,6 +1788,13 @@ def phase_full(world, phase, out_dir):
         if bool(ref.get("marginal")) != bool(cleanup.chain_info_calls):
             problems.append(f"{cleanup.chain_info_calls} marginal "
                             f"chain-information calls")
+        if bool(ref.get("accel")) != bool(queries.queries):
+            problems.append(f"{queries.queries} fused-matcher queries")
+        prof_s = {k: be.prof[k] for k in (
+            "kf_edges", "kf_stack", "kf_window", "kf_accept", "grid_build",
+            "chain_edges", "match_snapshot", "match_search",
+            "match_correlate", "match_refine", "match_apply",
+            "refine_map")}
         emit({
             "phase": phase, **cmp, **counts,
             "kernel_launches": launches, "launches_by_phase": by_phase,
@@ -1712,14 +1820,16 @@ def phase_full(world, phase, out_dir):
             "backend_mean_ms": float(bt.mean() * 1e3),
             "backend_max_ms": float(bt.max() * 1e3),
             "backend_ticks": len(bt),
-            "prof_s": {k: be.prof[k] for k in (
-                "kf_edges", "grid_build", "chain_edges", "match_snapshot",
-                "match_search", "match_correlate", "match_refine",
-                "match_apply", "refine_map")},
+            "prof_s": prof_s,
+            "fused_queries": queries.queries,
+            "fused_calls": queries.calls,
+            "fused_calls_per_query": queries.calls / max(queries.queries, 1),
         })
         return {"launches": launches, "insertions": rec.calls,
                 "refine_launches": refine_launches, "replay": replay,
                 "frontend_ms": ft * 1e3,
+                "split": {**prof_s, "final_cleanup": cleanup.cleanup_s,
+                          "frame_loop": r.wall_s},
                 "problems": [f"{world}: " + "; ".join(problems)]
                 if problems else []}
     finally:
@@ -2045,6 +2155,242 @@ def phase_resume(out_dir):
             else []}
 
 
+# the fused phase's seeded cases at sim-office's sizes: score grids of
+# G = 320 cells at 0.1 m (F = 384), R = 225 rotations (range_max 10 m,
+# 1 rad each side), +-5 m (n_linear 50), stride 16 (depth 5), K = 256
+# planes a call; FUSED_CANDIDATES candidates (a chunk of 16 and one of
+# 2) and a query of FUSED_POINTS points (padded to 512); the paging case
+# at FUSED_PAGE_K planes a call; the pins: a batch of 8 (6 live), R = 65
+# (0.2 rad), +-0.8 m (n_linear 8), N = 512, high-res G = 576 at 0.05 m,
+# a stack of 32 submaps
+FUSED_CANDIDATES = 18
+FUSED_POINTS = 400
+FUSED_PAGE_K = 64
+FUSED_SCORE_ATOL = 1e-5
+FUSED_BOUND_RTOL = 1e-6
+FUSED_COV_RTOL, FUSED_COV_ATOL = 1e-3, 1e-5
+PIN_WCOV_ATOL = 5e-6
+
+
+def walls_grid(rng, G, res, origin, segs):
+    """(G, G) float32 probabilities: 0.15 inside the walls' box, 0.9 on
+    the wall segments `segs` (n, 2, 2) (sampled every res / 4), 0
+    (unknown) outside."""
+    g = np.zeros((G, G), np.float32)
+    lo = int(2.0 / res)
+    g[lo:G - lo, lo:G - lo] = 0.15
+    for a, b in segs:
+        t = np.linspace(0.0, 1.0, int(np.linalg.norm(b - a) / res * 4) + 2)
+        p = a + t[:, None] * (b - a)
+        c = np.floor((p - origin) / res).astype(int)
+        ok = ((c >= 0) & (c < G)).all(1)
+        g[c[ok, 0], c[ok, 1]] = 0.9
+    return g
+
+
+def fused_inputs(seed=0):
+    """Host (numpy) inputs of the fused phase: per submap its wall
+    segments' score grid (G = 320) and high-res grid (G = 576), the
+    query drawn from the last candidate's walls, and the pin batch."""
+    rng = np.random.default_rng(seed)
+    M = 32
+    origin, high_origin = np.array([-16.0, -16.0]), np.array([-14.4, -14.4])
+    grids, highs, walls = [], [], []
+    for _ in range(M):
+        segs = []
+        for _ in range(14):
+            a = rng.uniform(-11, 11, 2)
+            d = rng.uniform(2, 8) * (np.array([1, 0]) if rng.random() < 0.5
+                                     else np.array([0, 1]))
+            segs.append((a, a + d))
+        walls.append(segs)
+        grids.append(walls_grid(rng, 320, 0.1, origin, segs))
+        highs.append(walls_grid(rng, 576, 0.05, high_origin, segs))
+
+    def on_walls(segs, n):
+        a = np.array([s[0] for s in segs])
+        b = np.array([s[1] for s in segs])
+        k = rng.integers(0, len(segs), n)
+        t = rng.uniform(0, 1, n)[:, None]
+        return a[k] + t * (b[k] - a[k]) + rng.normal(0, 0.02, (n, 2))
+
+    th, shift = 0.04, np.array([0.42, -0.31])
+    c, s_ = np.cos(-th), np.sin(-th)
+    query = ((on_walls(walls[FUSED_CANDIDATES - 1], FUSED_POINTS) - shift)
+             @ np.array([[c, -s_], [s_, c]]).T).astype(np.float32)
+    B, N, R = 8, 512, 65
+    pins = dict(pts=np.zeros((B, N, 2), np.float32),
+                val=np.zeros((B, N), bool), orgs=np.zeros((B, 2), np.float32),
+                seeds=np.zeros((B, 3), np.float32),
+                ths=np.zeros((B, R), np.float32),
+                ids=rng.integers(0, M, B), live=np.arange(B) < 6)
+    for k in range(6):
+        n = int(rng.integers(120, N))
+        pins["pts"][k, :n] = on_walls(walls[pins["ids"][k]], n)
+        pins["val"][k, :n] = True
+        pins["seeds"][k] = [rng.uniform(-0.3, 0.3), rng.uniform(-0.3, 0.3),
+                            rng.uniform(-0.05, 0.05)]
+        pins["orgs"][k] = origin - pins["seeds"][k, :2]
+        pins["ths"][k] = (pins["seeds"][k, 2]
+                          + (np.arange(R) - R // 2) * 0.01)
+    return dict(grids=np.stack(grids), highs=np.stack(highs),
+                origin=origin.astype(np.float32),
+                high_origin=high_origin.astype(np.float32), query=query,
+                th0=list(rng.uniform(-0.05, 0.05, FUSED_CANDIDATES)),
+                pins=pins)
+
+
+def fused_calls(inp, device):
+    """The fused phase's calls through the port on `device`: one
+    fused_match (the first chunk), match_candidates_fused over every
+    candidate at K = 256 and at FUSED_PAGE_K, pin_eval_batch. Returns
+    (host results, fused_match calls of each query, the callables,
+    each first call's wall ms)."""
+    dev = torch.device(device)
+    f32 = torch.float32
+    spec = matching_mod.search_spec(5.0, 1.0, 10.0, 0.1)
+    probs = torch.from_numpy(inp["grids"]).to(dev)
+    pyr = [precompute_pyramid(p, 5) for p in probs]
+    sg = [p[0] for p in pyr]
+    pooled = [p[4] for p in pyr]
+    spectra = matching_mod.grid_spectrum(torch.stack(sg), 384, 320)
+    org = torch.from_numpy(inp["origin"]).to(dev)
+    C = FUSED_CANDIDATES
+    origins = [org] * C
+    R = 2 * spec.n_angular + 1
+    ks = np.arange(R) - spec.n_angular
+    thetas = torch.from_numpy(np.stack([
+        (t + ks * spec.angular_step).astype(np.float32)
+        for t in inp["th0"][:16]])).to(dev)
+    pts = np.zeros((512, 2), np.float32)
+    pts[:FUSED_POINTS] = inp["query"]
+    pts_d = torch.from_numpy(pts).to(dev)
+    valid = torch.from_numpy(np.arange(512) < FUSED_POINTS).to(dev)
+
+    def one_call():
+        return matching_mod.fused_match(
+            torch.stack(sg[:16]), torch.stack(pooled[:16]),
+            torch.stack(origins[:16]), thetas,
+            torch.ones(16, dtype=torch.bool, device=dev), pts_d, valid,
+            torch.tensor(inp["th0"][:16], dtype=f32, device=dev),
+            np.float32(spec.angular_step), np.float32(0.7), 0.1,
+            int(spec.n_linear), 320, 384, 16, 256, spectra=spectra[:16])
+
+    def query(K):
+        return matching_mod.match_candidates_fused(
+            sg[:C], pooled[:C], origins, inp["th0"], inp["query"], spec,
+            0.7, 16,
+            K=K, spectra_list=list(spectra[:C]))
+
+    pins = {k: torch.from_numpy(np.asarray(v)).to(dev)
+            for k, v in inp["pins"].items()}
+    high = torch.from_numpy(inp["highs"]).to(dev)
+    high_org = torch.from_numpy(np.tile(inp["high_origin"], (32, 1))).to(dev)
+
+    def pin_batch():
+        return matching_mod.pin_eval_batch(
+            spectra, high, high_org, pins["ids"], pins["orgs"],
+            pins["seeds"], pins["pts"], pins["val"], pins["ths"],
+            pins["live"], resolution=0.1, n_linear=8, size=320,
+            fft_size=384)
+
+    fns = {"fused_match": one_call, "query_k256": lambda: query(256),
+           f"query_k{FUSED_PAGE_K}": lambda: query(FUSED_PAGE_K),
+           "pin_eval_batch": pin_batch}
+    out, pages, first_ms = {}, {}, {}
+    for key, fn in fns.items():
+        n = matching_mod.FUSED_CALLS
+        t0 = time.perf_counter()
+        r = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        first_ms[key] = (time.perf_counter() - t0) * 1e3
+        if key == "fused_match":
+            r = [o.cpu().numpy() if isinstance(o, torch.Tensor) else o
+                 for o in r]
+        elif key == "pin_eval_batch":
+            r = r.cpu().numpy()
+        else:
+            pages[key] = matching_mod.FUSED_CALLS - n
+        out[key] = r
+    return out, pages, fns, first_ms
+
+
+def wall_ms(fn, reps=3):
+    """Mean wall ms of fn() on the card (synchronized; the calls read
+    their results on the host)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def fused_problems(card, host):
+    """Every way the card's fused-phase results differ from the host
+    CPU's beyond the stated tolerances."""
+    problems = []
+    a, b = card["fused_match"], host["fused_match"]
+    if abs(float(a[0]) - float(b[0])) > FUSED_SCORE_ATOL:
+        problems.append(f"fused_match score {a[0]} != {b[0]}")
+    if not np.array_equal(a[1], b[1]) or a[3] != b[3]:
+        problems.append(f"fused_match pose/candidate {a[1]} {a[3]} != "
+                        f"{b[1]} {b[3]}")
+    if not np.allclose(a[2], b[2], rtol=FUSED_COV_RTOL,
+                       atol=FUSED_COV_ATOL):
+        problems.append("fused_match covariance differs")
+    if not np.allclose(a[6], b[6], rtol=FUSED_BOUND_RTOL, atol=0):
+        problems.append("fused_match bounds differ")
+    for key in card:
+        if not key.startswith("query"):
+            continue
+        x, y = card[key], host[key]
+        if x[0] != y[0] or (x[0] is not None and (
+                abs(x[1] - y[1]) > FUSED_SCORE_ATOL
+                or not np.array_equal(x[2], y[2])
+                or not np.allclose(x[3], y[3], rtol=FUSED_COV_RTOL,
+                                   atol=FUSED_COV_ATOL))):
+            problems.append(f"{key}: {x[:3]} != {y[:3]}")
+    p, q = card["pin_eval_batch"], host["pin_eval_batch"]
+    if (np.abs(p[:, 0] - q[:, 0]).max() > FUSED_SCORE_ATOL
+            or not np.array_equal(p[:, 1:4], q[:, 1:4])
+            or np.abs(p[:, 4:13] - q[:, 4:13]).max() > PIN_WCOV_ATOL
+            or not np.array_equal(p[:, 13:], q[:, 13:])):
+        problems.append("pin_eval_batch rows differ")
+    return problems
+
+
+def phase_fused():
+    """The accelerator branch's torch ops at sim-office's sizes on the
+    card against the same calls through the port on the host CPU."""
+    inp = fused_inputs()
+    card, card_pages, card_fns, card_first_ms = fused_calls(inp, "cuda")
+    host, host_pages, _, host_ms = fused_calls(inp, "cpu")
+    problems = fused_problems(card, host)
+    if card_pages[f"query_k{FUSED_PAGE_K}"] <= 2:
+        problems.append("the paging query did not page")
+    ms = {k: wall_ms(fn) for k, fn in card_fns.items()}
+    q = card["query_k256"]
+    emit({"phase": "fused", "ms": ms, "first_call_ms": card_first_ms,
+          "host_cpu_ms": host_ms,
+          "fused_calls_per_query": card_pages,
+          "host_fused_calls_per_query": host_pages,
+          "query": {"candidate": q[0], "score": q[1],
+                    "pose": None if q[2] is None else q[2].tolist()},
+          "pins_live": int(inp["pins"]["live"].sum()),
+          "pin_scores": card["pin_eval_batch"][:, 0].tolist(),
+          "tolerances": {"score_atol": FUSED_SCORE_ATOL,
+                         "bound_rtol": FUSED_BOUND_RTOL,
+                         "cov_rtol": FUSED_COV_RTOL,
+                         "cov_atol": FUSED_COV_ATOL,
+                         "pin_wcov_atol": PIN_WCOV_ATOL,
+                         "pose, candidate, pin pose0 and "
+                         "refinement": "equal"},
+          "problems": problems})
+    return {"launches": 0, "refine_launches": 0, "problems": problems}
+
+
 def phase_blocked():
     """The keyframe-partitioned solver on the card on make_chain_graph
     graphs (BLOCKED_CASES, blocks of 128 poses), against the float64
@@ -2347,7 +2693,13 @@ def main() -> int:
             "joint": timed("joint", phase_full, "sim-office-joint", "joint",
                            args.out),
             "marginal": timed("marginal", phase_full, "sim-office-marginal",
-                              "marginal", args.out)}
+                              "marginal", args.out),
+            "accel": timed("accel", phase_full, "sim-office-accel", "accel",
+                           args.out)}
+    emit({"phase": "accel_split", "world": "sim-office",
+          "accel_branch": runs["accel"]["split"],
+          "cpu_branch": runs["backend"]["split"]})
+    checks = timed("fused", phase_fused)["problems"]
     runs["realtime"] = timed("realtime", phase_realtime, "sim-office", 2.0,
                              args.out, runs["backend"]["frontend_ms"])
     runs["resume"] = timed("resume", phase_resume, args.out)
@@ -2366,7 +2718,13 @@ def main() -> int:
         runs["realtime_killian"] = timed(
             "realtime_killian", phase_realtime, "sim-killian", 1.5,
             args.out, killian_ms)
-    failed = [p for r in runs.values() for p in r["problems"]]
+        runs["beams60_accel"] = timed(
+            "beams60_accel", phase_full, "sim-office-beams60-accel",
+            "beams60_accel", args.out)
+        emit({"phase": "accel_split", "world": "sim-office-beams60",
+              "accel_branch": runs["beams60_accel"]["split"],
+              "cpu_branch": runs["beams60"]["split"]})
+    failed = checks + [p for r in runs.values() for p in r["problems"]]
     killian = runs["killian"]
     ms, plain_ms, bound_ms, bound_by, err = timed(
         "kernels", time_run_calls, killian["insertions"])

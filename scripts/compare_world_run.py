@@ -8,10 +8,12 @@ its slam.yaml: sim-office-refine1 (final_refine_rounds: 1),
 sim-office-beams60 (scan_size: 60, multicloud_size: 960),
 sim-office-joint (final_joint: true), sim-office-marginal
 (chain_info_mode: marginal), sim-office-smf (algorithm: smf) or
-sim-office-hough (algorithm: hough). LOG is the run's standard output
-under SLAM_LOG_MATCHES=1 (python -m sparse_gslam_tpu_torch.runner
---dataset-dir <copy of the dataset> --dataset-name <dataset> --eval
-...); RESULT is the .result it wrote. Prints chip_smoke.compare_run's
+sim-office-hough (algorithm: hough), and sim-office-accel and
+sim-office-beams60-accel (sim-office and its 60-beam copy run with the
+runner's --accel-branch, against scripts/jax_accel_branch.py's run).
+LOG is the run's standard output under SLAM_LOG_MATCHES=1 (python -m
+sparse_gslam_tpu_torch.runner --dataset-dir <copy of the dataset>
+--dataset-name <dataset> --eval ...); RESULT is the .result it wrote. Prints chip_smoke.compare_run's
 readings as one JSON line (the decision lines counted, not listed).
 Needs no GPU.
 """

@@ -1,11 +1,15 @@
 """State handed between the JAX package and the port as numpy arrays.
 
 There are no model weights here: the state that crosses is the
-landmark graph, the pose graph and the occupancy grid. The JAX side
-converts its arrays with `np.asarray`; these functions build the port's
-tensors from them. The frontend uses `lm_graph_from_numpy` for its own
-per-keyframe graph, the backend `pose_graph_from_numpy` for every
-pose-graph solve and `joint_graph_from_numpy` for the final joint solve.
+landmark graph, the pose graph and the occupancy grid, and the
+accelerator branch's matcher inputs. The JAX side converts its arrays
+with `np.asarray`; these functions build the port's tensors from them.
+The frontend uses `lm_graph_from_numpy` for its own per-keyframe graph,
+the backend `pose_graph_from_numpy` for every pose-graph solve and
+`joint_graph_from_numpy` for the final joint solve; `grids_from_numpy`,
+`spectra_from_numpy` and `pin_batch_from_numpy` carry the inputs of
+fused_match / match_candidates_fused and pin_eval_batch (ops/
+matching.py), so that the JAX package and the port see the same data.
 """
 from __future__ import annotations
 
@@ -91,3 +95,33 @@ def grid_from_numpy(probs, origin, resolution, device) -> SubmapGrid:
         torch.tensor(np.asarray(origin, np.float32), device=device),
         float(resolution),
     )
+
+
+def grids_from_numpy(grids, device) -> list:
+    """A list of float32 (G, G) tensors on `device` from a stack or list
+    of grids (score, pooled or high-res grids; origins likewise as
+    (2,) rows), in one host-to-device copy."""
+    arr = np.array(grids, np.float32)
+    return list(torch.from_numpy(arr).to(device))
+
+
+def spectra_from_numpy(spectra, device) -> torch.Tensor:
+    """Grid spectra (grid_spectrum's (..., F, F//2+1) half spectra) as
+    one complex64 tensor on `device`."""
+    arr = np.array(spectra, np.complex64)
+    return torch.from_numpy(arr).to(device)
+
+
+_PIN_FLOAT_FIELDS = ("orgs", "seeds", "pts", "ths")
+
+
+def pin_batch_from_numpy(fields: dict, device) -> dict:
+    """pin_eval_batch's per-pin inputs by name (ids, orgs, seeds, pts,
+    val, ths, live, as the JAX package's _kf_edges_device builds them):
+    float32 poses, points and angles, int64 submap ids and bool masks
+    on `device`, in three host-to-device copies."""
+    return {
+        **_packed(fields, _PIN_FLOAT_FIELDS, np.float32, device),
+        **_packed(fields, ("ids",), np.int64, device),
+        **_packed(fields, ("val", "live"), np.bool_, device),
+    }

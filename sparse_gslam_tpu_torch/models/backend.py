@@ -25,15 +25,26 @@ Grids, the matcher, the refinement and the pose-graph solve run on
 `device`; what the JAX package computes in numpy stays numpy on the
 host. final_cleanup may end with joint_solve, the joint landmark +
 pose bundle adjustment (ops/solvers.optimize_joint_graph) on `device`.
-Not ported (ROADMAP.md): the accelerator branch (fused matcher, device
-pin batches), the sharded (multi-device) pose-graph solver and the
-ground-truth diagnostics; no configuration selects them on this path.
+
+accel_branch=True takes the JAX package's other branch, which it picks
+by jax.default_backend() != "cpu", at the same places and nowhere else:
+the rotation count frozen at range_max (_match_snapshot, rematch_all),
+the fused one-call matcher on cached per-submap spectra
+(ops/matching.match_candidates_fused; _match_search, rematch_all) and
+the device pin batches (ops/matching.pin_eval_batch; _kf_edges_device).
+It runs on whichever device the backend was built with. Unlike the JAX
+package it leaves the frontend where it is (frontend_on_host is not
+carried over). Off (the default) is the CPU branch on every device.
+Not ported (ROADMAP.md): the sharded (multi-device) pose-graph solver
+and the ground-truth diagnostics; no configuration selects them on
+this path.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import dataclasses
+import functools
 import math
 import os
 import time as _time
@@ -41,7 +52,11 @@ import time as _time
 import numpy as np
 import torch
 
-from ..interop import joint_graph_from_numpy, pose_graph_from_numpy
+from ..interop import (
+    joint_graph_from_numpy,
+    pin_batch_from_numpy,
+    pose_graph_from_numpy,
+)
 from ..ops import matching, solvers
 from ..ops.grid import GridSpec, build_submap_grid, precompute_pyramid
 from ..ops.line_geometry import transform_line
@@ -95,6 +110,18 @@ class Submap:
     # per-keyframe pins score their small windows with numpy gathers)
     score_grid_np: object = None
     pooled_np: object = None
+    # lazily-cached (F, F//2+1) spectrum of score_grid (the accelerator
+    # branch's fused matcher and pin batches read it; dropped when
+    # rebuild_grids replaces the grids)
+    spectrum: object = None
+
+    def get_spectrum(self, fft_size: int):
+        if self.spectrum is None or self.spectrum.shape[-2] != fft_size:
+            self.spectrum = matching.grid_spectrum(
+                self.score_grid[None], int(fft_size),
+                int(self.score_grid.shape[0]),
+            )[0]
+        return self.spectrum
 
 
 @dataclasses.dataclass
@@ -121,10 +148,16 @@ class Closure:
 
 class SubmapLoopCloser:
     def __init__(self, config: SlamConfig, frontend: Frontend,
-                 device="cuda"):
+                 device="cuda", accel_branch: bool = False):
         self.config = config
         self.frontend = frontend
         self.device = torch.device(device)
+        # the JAX package's accelerator branch (module docstring)
+        self.accel_branch = bool(accel_branch)
+        # its device stacks of every submap's spectrum and high-res
+        # grid: (submap count, stack...), rebuilt when the set changes
+        self._spectra_stack = None
+        self._high_stack = None
         self.submaps: list[Submap] = []
         self.last_pose_idx = 0
         self.last_opt_pose_index = 0
@@ -259,6 +292,8 @@ class SubmapLoopCloser:
             )
         )
         cfg = self.config
+        self._spectra_stack = None
+        self._high_stack = None
         self.last_pose_idx = max(0, mid - cfg.submap_overlap_poses)
         if cfg.local_refine:
             _t = _time.perf_counter()
@@ -353,10 +388,15 @@ class SubmapLoopCloser:
             return None
         map_pose = self._map_transforms()
         bl_trans = map_pose(mid)
+        max_range = float(np.linalg.norm(query, axis=1).max())
+        if self.accel_branch:
+            # the rotation count frozen at range_max (its finest angular
+            # step: a superset of the rotations)
+            max_range = cfg.range_max
         spec = matching.search_spec(
             cfg.linear_search_window,
             cfg.angular_search_window,
-            float(np.linalg.norm(query, axis=1).max()),
+            max_range,
             cfg.submap_resolution,
         )
 
@@ -403,6 +443,19 @@ class SubmapLoopCloser:
         )
         return _host(refined, censi_cov)
 
+    def _match_fn(self, candidates):
+        """The candidate-set matcher: the pruned matcher, or with the
+        accelerator branch the fused one-call matcher (chunks of 16
+        candidates, K = 256 planes a call) on the candidates' cached
+        spectra."""
+        if not self.accel_branch:
+            return matching.match_candidates_pruned
+        fft_size = int(candidates[0][0].score_grid.shape[0]) + 64
+        return functools.partial(
+            matching.match_candidates_fused, c_bucket=16, K=256,
+            spectra_list=[c[0].get_spectrum(fft_size) for c in candidates],
+        )
+
     def _match_search(self, snap):
         """Candidate matching + high-res refinement."""
         cfg = self.config
@@ -411,12 +464,14 @@ class SubmapLoopCloser:
         candidates = snap["candidates"]
         # the ctpl-pool fan-out of submap_loop_closer.cpp:158-171 as
         # exact upper-bound rotation pruning + FFT correlation, candidate
-        # by candidate (the running-best floor prunes later ones)
+        # by candidate (the running-best floor prunes later ones), or
+        # the fused matcher (_match_fn)
         stride = 1 << (max(1, cfg.branch_and_bound_depth) - 1)
         origins = self._shifted_origins(candidates)
+        match_fn = self._match_fn(candidates)
 
         def run(min_score):
-            return matching.match_candidates_pruned(
+            return match_fn(
                 [c[0].score_grid for c in candidates],
                 [c[0].pooled_grid for c in candidates],
                 origins,
@@ -795,6 +850,8 @@ class SubmapLoopCloser:
         self._kf_edge_done = max(self._kf_edge_done, last_complete)
         if not pending:
             return 0
+        if self.accel_branch:
+            return self._kf_edges_device(pending, stats)
         return self._kf_edges_host(pending, stats)
 
     def _kf_edges_host(self, pending, stats) -> int:
@@ -806,6 +863,121 @@ class SubmapLoopCloser:
             made += self._pin_finish(j, sm, query, refined, cov,
                                      score, why, stats)
         return made
+
+    def _kf_edges_device(self, pending, stats) -> int:
+        """The accelerator branch's pins: matching.pin_eval_batch scores
+        the windows on the cached spectra, takes the argmax, the volume
+        covariance, the high-res refinement and the overlap for up to 8
+        pins at once into one (8, 26) block, read back once; the host
+        keeps only the accept gates (_pin_accept_packed). The rotation
+        set is frozen at range_max, as _match_snapshot's."""
+        cfg = self.config
+        res = float(self.spec.resolution)
+        spec = matching.search_spec(
+            cfg.kf_search_window, cfg.kf_angular_window, cfg.range_max, res,
+        )
+        R = 2 * spec.n_angular + 1
+        ks = np.arange(R) - spec.n_angular
+        size = self.spec.size
+        fft_size = size + 64
+        _t = _time.perf_counter()
+        spectra = self._get_spectra_stack(fft_size)
+        high_stack, high_origins = self._get_high_stack()
+        self.prof["kf_stack"] += _time.perf_counter() - _t
+        made = 0
+        B = 8
+        for lo in range(0, len(pending), B):
+            chunk = pending[lo:lo + B]
+            _t = _time.perf_counter()
+            pts = np.zeros((B, 512, 2), np.float32)
+            val = np.zeros((B, 512), bool)
+            orgs = np.zeros((B, 2), np.float32)
+            seeds = np.zeros((B, 3), np.float32)
+            ths = np.zeros((B, R), np.float32)
+            ids = np.zeros(B, np.int64)
+            live = np.zeros(B, bool)
+            for k, (j, smi, query, seed) in enumerate(chunk):
+                pts[k, :len(query)] = query
+                val[k, :len(query)] = True
+                orgs[k] = _host(self.submaps[smi].origin)[0] - seed[:2]
+                seeds[k] = seed
+                ths[k] = seed[2] + ks * spec.angular_step
+                ids[k] = smi
+                live[k] = True
+            t = pin_batch_from_numpy(
+                dict(ids=ids, orgs=orgs, seeds=seeds, pts=pts, val=val,
+                     ths=ths, live=live), self.device)
+            out = matching.pin_eval_batch(
+                spectra, high_stack, high_origins, t["ids"], t["orgs"],
+                t["seeds"], t["pts"], t["val"], t["ths"], t["live"],
+                resolution=res, n_linear=int(spec.n_linear),
+                size=int(size), fft_size=int(fft_size),
+            ).cpu().numpy()
+            self.prof["kf_window"] += _time.perf_counter() - _t
+            _t = _time.perf_counter()
+            for k, (j, smi, query, seed) in enumerate(chunk):
+                refined, cov, score, why = self._pin_accept_packed(
+                    out[k], spec, cfg.kf_min_score, cfg.kf_min_overlap,
+                    cfg.kf_refine_sigma_xy, cfg.kf_refine_sigma_th,
+                )
+                made += self._pin_finish(j, self.submaps[smi], query,
+                                         refined, cov, score, why, stats)
+            self.prof["kf_accept"] += _time.perf_counter() - _t
+        return made
+
+    def _pin_accept_packed(self, row, spec, min_score, min_overlap,
+                           floor_xy, floor_th):
+        """_pin_accept's gates on one pin_eval_batch row [score, pose0
+        (3), wcov (9), refined (3), censi (9), overlap]."""
+        sc = float(row[0])
+        if sc < min_score:
+            return None, None, None, "score"
+        pose0 = row[1:4]
+        wcov = row[4:13].reshape(3, 3)
+        refined = row[13:16].copy()
+        censi = row[16:25].reshape(3, 3)
+        overlap = float(row[25])
+        if min_overlap > 0.0 and overlap < min_overlap:
+            return None, None, None, "score"
+        if (
+            np.linalg.norm(refined[:2] - pose0[:2]) > 0.3
+            or abs(se2.wrap_angle(refined[2] - pose0[2])) > 0.1
+        ):
+            return None, None, None, "corr"
+        cov = self._cov_hybrid(
+            censi, wcov, spec.angular_step, floor_xy, floor_th,
+        )
+        return refined, cov, sc, None
+
+    @staticmethod
+    def _stack_size(n: int) -> int:
+        """Stacks are padded to a power of two from 32 submaps."""
+        m = 32
+        while m < n:
+            m *= 2
+        return m
+
+    def _get_spectra_stack(self, fft_size: int):
+        """(M, F, F//2+1) device stack of every submap's cached
+        spectrum, padded with the last to _stack_size."""
+        n = len(self.submaps)
+        if self._spectra_stack is None or self._spectra_stack[0] != n:
+            arrs = [sm.get_spectrum(fft_size) for sm in self.submaps]
+            arrs += [arrs[-1]] * (self._stack_size(n) - n)
+            self._spectra_stack = (n, torch.stack(arrs))
+        return self._spectra_stack[1]
+
+    def _get_high_stack(self):
+        """(M, G2, G2) device stack of the high-res grids and their
+        (M, 2) origins, padded as _get_spectra_stack."""
+        n = len(self.submaps)
+        if self._high_stack is None or self._high_stack[0] != n:
+            pad = self._stack_size(n) - n
+            grids = [sm.high_res for sm in self.submaps]
+            origs = [sm.high_origin.to(torch.float32) for sm in self.submaps]
+            self._high_stack = (n, torch.stack(grids + grids[-1:] * pad),
+                                torch.stack(origs + origs[-1:] * pad))
+        return self._high_stack[1], self._high_stack[2]
 
     def _pin_finish(self, j, sm, query, refined, cov, score, why,
                     stats) -> int:
@@ -1023,6 +1195,9 @@ class SubmapLoopCloser:
              sm.high_res, sm.high_origin) = self._build_grids(rd)
             sm.score_grid_np = None
             sm.pooled_np = None
+            sm.spectrum = None
+        self._spectra_stack = None
+        self._high_stack = None
 
     # --------------------------------------------------------------------
     def rematch_all(self) -> int:
@@ -1066,10 +1241,12 @@ class SubmapLoopCloser:
                 query = query[
                     np.linspace(0, len(query) - 1, 512).astype(int)
                 ]
+            max_range = float(np.linalg.norm(query, axis=1).max())
+            if self.accel_branch:
+                max_range = cfg.range_max  # as _match_snapshot's
             spec = matching.search_spec(
                 cfg.linear_search_window, cfg.angular_search_window,
-                float(np.linalg.norm(query, axis=1).max()),
-                cfg.submap_resolution,
+                max_range, cfg.submap_resolution,
             )
             cands = []
             for ti, tsm in enumerate(self.submaps):
@@ -1099,7 +1276,7 @@ class SubmapLoopCloser:
                 )
             if not cands:
                 continue
-            ci, score, pose, cov = matching.match_candidates_pruned(
+            ci, score, pose, cov = self._match_fn(cands)(
                 [c[0].score_grid for c in cands],
                 [c[0].pooled_grid for c in cands],
                 self._shifted_origins(cands),

@@ -30,7 +30,10 @@ from .frontend import Frontend
 
 class SlamSystem:
     def __init__(self, config: SlamConfig, ls_params: ExtractorConfig,
-                 enable_backend: bool = True, device="cuda"):
+                 enable_backend: bool = True, device="cuda",
+                 accel_branch: bool = False):
+        """accel_branch: the backend takes the JAX package's accelerator
+        branch (models/backend.py) on `device`, whatever it is."""
         self.config = config
         self.ls_params = ls_params
         self.device = torch.device(device)
@@ -41,7 +44,8 @@ class SlamSystem:
             from .backend import SubmapLoopCloser
 
             self.backend = SubmapLoopCloser(config, self.frontend,
-                                            device=self.device)
+                                            device=self.device,
+                                            accel_branch=accel_branch)
         self.deltas: list[np.ndarray] = []
         self.zero_pose = np.zeros(3)
         self.last_pose = None

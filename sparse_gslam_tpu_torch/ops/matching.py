@@ -19,7 +19,10 @@ of the CUDA kernel (ops/refine_cuda.py) for grids on the card, its plain
 version (ops/refine_exact.py, on the host) for grids on the CPU; both
 round as the JAX package's compiled CPU program does. The pin
 helpers (`pin_bound_host`, `correlate_window_host`, `score_volume_cov`)
-are numpy on the host, as in the JAX package.
+are numpy on the host, as in the JAX package. The last section ports
+the JAX package's accelerator branch (`fused_match`,
+`match_candidates_fused`, `pin_eval_batch`), which
+models/backend.py runs with accel_branch.
 
 Device work runs on the device of the input tensors, in float32 as in
 the JAX package. Bit parity of the cell indices with the JAX package's
@@ -42,6 +45,7 @@ import ctypes
 import ctypes.util
 import functools
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -359,17 +363,19 @@ def _fma_dot_np(a, b):
 
 
 def _window_moments(scores, thetas, best_pose, init_theta, angular_step,
-                    resolution: float, w_lin: int):
+                    resolution: float, w_lin: int, dx=None, dy=None):
     """Band-weighted second moments of a (R, W, W) float32 score window
-    (numpy), in XLA's CPU order and rounding: (3, 3) float32."""
+    (numpy), in XLA's CPU order and rounding: (3, 3) float32. The
+    window's cells lie dx, dy cells (float32; -w_lin..w_lin when None)
+    from best_pose."""
     f32 = np.float32
     smax = scores.max()
     smin = scores.min()
     delta = np.maximum(f32(0.05), f32(0.15) * (smax - smin))
     weights = np.maximum(scores - (smax - delta), f32(0)) + f32(1e-9)
     dl = np.arange(-w_lin, w_lin + 1).astype(f32)
-    xs = _fma_np(dl, f32(resolution), best_pose[0])
-    ys = _fma_np(dl, f32(resolution), best_pose[1])
+    xs = _fma_np(dl if dx is None else dx, f32(resolution), best_pose[0])
+    ys = _fma_np(dl if dy is None else dy, f32(resolution), best_pose[1])
     ts = thetas - f32(init_theta)
     X = np.stack(
         np.broadcast_arrays(
@@ -802,3 +808,700 @@ def score_volume_cov(
             (2.5 * step) ** 2,
         ]
     )
+
+
+# ---------------------------------------------------------------------------
+# the accelerator branch: the fused one-call matcher and the pin batches
+# ---------------------------------------------------------------------------
+# Port of the JAX package's fused_match / match_candidates_fused /
+# pin_eval_batch and their helpers, which it runs when
+# jax.default_backend() != "cpu" (models/backend.py, accel_branch). They
+# are XLA programs there, torch ops here, on the device of the inputs:
+# histograms by index_put_ (the JAX one-hot bf16 einsum is a TPU
+# workaround; integer counts in float32 are equal either way), FFTs by
+# torch.fft, einsums by float32 matmuls (TF32 off, ops/solvers.py).
+# Cell indices round as XLA's CPU program rounds them (_plane_cells),
+# and every trigonometric factor is read from a table of the C
+# library's cosf/sinf (_phase_tables): the phases are (integer mod F)
+# times 2 pi / F, so F values cover every one. What is not bit-equal:
+# the FFTs and the matmuls' sums (~1e-7 relative).
+
+FUSED_CALLS = 0  # fused_match calls made by match_candidates_fused
+
+
+def _plane_cells(points, thetas, origins, resolution, tables=None):
+    """Rotate points by per-plane thetas and quantize to grid cells:
+    thetas (K,), origins (K, 2), points (N, 2) -> cx, cy (K, N) int64.
+    XLA's program takes cos/sin from the C library, contracts the
+    rotation into FMAs (_rotate) and multiplies by the float32
+    reciprocal of the static resolution. `tables` is (cos, sin) of
+    `thetas` when the caller has them (rotation_tables)."""
+    dev = points.device
+    c, s = tables if tables is not None else rotation_tables(thetas, dev)
+    px, py = _rotate(points, c, s)
+    inv = torch.tensor(np.float32(1.0) / np.float32(resolution),
+                       device=dev)
+    cx = torch.floor((px - origins[:, 0, None]) * inv).to(torch.int64)
+    cy = torch.floor((py - origins[:, 1, None]) * inv).to(torch.int64)
+    return cx, cy
+
+
+def _hist_onehot_masked(cx, cy, valid, size: int, out_size: int):
+    """Cell-count histograms of K planes with a per-plane point mask
+    valid (K, N): hist (K, out_size, out_size) float32 (cells in
+    [0, size), zero beyond) and n_in (K,), the points counted. The
+    counts are integers, so the scatter-add gives the JAX one-hot
+    einsum's values in any order of addition."""
+    K, N = cx.shape
+    inb = valid & (cx >= 0) & (cx < size) & (cy >= 0) & (cy < size)
+    rows = torch.arange(K, device=cx.device)[:, None]
+    idx = (rows * out_size + cx.clamp(0, size - 1)) * out_size + cy.clamp(
+        0, size - 1)
+    hist = torch.zeros(K * out_size * out_size, dtype=torch.float32,
+                       device=cx.device)
+    # points outside the grid add 0.0 to a cell of their own plane
+    hist.index_put_((idx.reshape(-1),), inb.reshape(-1).to(torch.float32),
+                    accumulate=True)
+    return hist.reshape(K, out_size, out_size), inb.sum(1)
+
+
+def _hist_onehot(cx, cy, point_valid, size: int, out_size: int):
+    """_hist_onehot_masked with one point mask (N,) for every plane."""
+    return _hist_onehot_masked(cx, cy, point_valid[None].expand(cx.shape),
+                               size, out_size)
+
+
+def _mean_scores(corr, n_in, n_valid):
+    """The out-of-grid PMIN correction and the mean: (corr + (n_valid -
+    n_in) PMIN) / n_valid, float32 as in the JAX program (n_valid is a
+    float32 count there)."""
+    fill = (n_valid - n_in.to(torch.float32)) * torch.tensor(
+        PMIN, dtype=torch.float32, device=corr.device)
+    return (corr + fill[..., None, None]) / n_valid[..., None, None]
+
+
+def grid_spectrum(score_grids, fft_size: int, size: int):
+    """Half-width (C, F, F//2+1) complex64 spectrum of the score grids
+    zero-padded to (F, F); computed once per submap and reused by every
+    query matched against it."""
+    C = score_grids.shape[0]
+    gpad = torch.zeros((C, fft_size, fft_size), dtype=torch.float32,
+                       device=score_grids.device)
+    gpad[:, :size, :size] = score_grids
+    return torch.fft.rfft2(gpad)
+
+
+def _corr_planes(hist, Fg, n_in, n_valid, n_linear: int, fft_size: int):
+    """Exact (K, W, W) mean scores of K planes by FFT, given their
+    grids' half spectra Fg (K, F, F//2+1) (the SLAM_MATCH_EXACT=fft
+    stage)."""
+    Fh = torch.fft.rfft2(hist)
+    corr = torch.fft.irfft2(torch.conj(Fh) * Fg, s=(fft_size, fft_size))
+    W = 2 * n_linear + 1
+    corr = torch.roll(corr, (n_linear, n_linear), dims=(1, 2))[:, :W, :W]
+    return _mean_scores(corr, n_in, n_valid)
+
+
+@functools.lru_cache(maxsize=None)
+def _phase_tables_np(fft_size: int):
+    """cos and sin of j * float32(2 pi / F) for j < F, each product
+    rounded to float32 and its cos/sin taken by the C library (what
+    the JAX program computes for every phase (integer mod F) * w)."""
+    w = np.float32(2.0 * math.pi / fft_size)
+    return cos_sin_f32(np.arange(fft_size).astype(np.float32) * w)
+
+
+def _phase_tables(fft_size: int, device):
+    c, s = _phase_tables_np(fft_size)
+    return (torch.from_numpy(c).to(device), torch.from_numpy(s).to(device))
+
+
+def _shared(device, *tensors):
+    """Tensors kept for every later call: on the card the building
+    stream is waited for here, since calls on other streams (the
+    realtime mode's threads) read them."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    return tensors if len(tensors) > 1 else tensors[0]
+
+
+@functools.lru_cache(maxsize=8)
+def _nudft_rows(size: int, fft_size: int, device):
+    """(size, F) complex64 e^{+i (c u mod F) w} for every cell c < size
+    and frequency u < F: row c holds the forward NUDFT factors of a
+    point in cell c (built once per grid size and device)."""
+    tc, ts = _phase_tables(fft_size, device)
+    c = torch.arange(size, device=device)
+    u = torch.arange(fft_size, device=device)
+    ph = torch.remainder(c[:, None] * u[None, :], fft_size)
+    return _shared(device, torch.complex(tc[ph], ts[ph]))
+
+
+@functools.lru_cache(maxsize=8)
+def _window_factors(n_linear: int, fft_size: int, device):
+    """The inverse DFT's factors on the (2L+1)^2 window: (W, F)
+    e^{+i (u dx mod F) w} and (F//2+1, W) c_v e^{+i (v dy mod F) w},
+    c_v = 2 for the columns 1 <= v <= F - F//2 - 1 that a half spectrum
+    also stands for by hermitian symmetry, 1 for the others."""
+    tc, ts = _phase_tables(fft_size, device)
+    F2 = fft_size // 2 + 1
+    d = torch.arange(-n_linear, n_linear + 1, device=device)
+    u = torch.arange(fft_size, device=device)
+    pu = torch.remainder(d[:, None] * u[None, :], fft_size)
+    pv = torch.remainder(u[:F2, None] * d[None, :], fft_size)
+    c = torch.ones(F2, dtype=torch.float32, device=device)
+    c[1:fft_size - F2 + 1] = 2.0
+    return _shared(device, torch.complex(tc[pu], ts[pu]),
+                   (c[:, None] * tc[pv], c[:, None] * ts[pv]))
+
+
+def _partial_idft(S, n_linear: int, fft_size: int):
+    """Inverse 2-D DFT of half spectra S (K, F, F//2+1) complex64, only
+    on the (2L+1)^2 search window: matmuls instead of a full inverse
+    FFT. The missing half, S_full[u, F-v'] = conj(S[(F-u)%F, v']),
+    adds the conjugate of the same sums over the columns v' = 1..F-F2,
+    so corr[dx, dy] = Re sum_v c_v U[dx, v] e^{+i phi_v dy} / F^2 with
+    U[dx, v] = sum_u e^{+i phi_u dx} S[u, v] (_window_factors' c_v).
+    Returns (K, W, W) float32 indexed [k, dx, dy]."""
+    eu, (evr, evi) = _window_factors(n_linear, fft_size, S.device)
+    U = torch.matmul(eu, S)  # (K, W, F2)
+    out = _bmm(U.real, evr) - _bmm(U.imag, evi)
+    return out / torch.tensor(float(fft_size * fft_size),
+                              dtype=torch.float32, device=S.device)
+
+
+def _bmm(a, b):
+    """float32 batched matmul; TF32 is off (ops/solvers.py)."""
+    return torch.matmul(a, b)
+
+
+# forward NUDFT factors are (planes, points, F) complex64: built for
+# this many elements at most per pass over the planes
+_NUDFT_CHUNK = 1 << 25
+
+
+def _corr_planes_nudft(Fg, cx, cy, point_valid, n_valid, n_linear: int,
+                       size: int, fft_size: int):
+    """Exact (K, W, W) mean scores of K planes from their grids' cached
+    half spectra Fg (K, F, F//2+1) without an FFT of the query: the
+    query's conjugate spectrum is a nonuniform DFT of its points (one
+    complex matmul over the N points), the inverse only on the search
+    window (_partial_idft). Same values as _corr_planes to float32
+    rounding."""
+    F = fft_size
+    F2 = F // 2 + 1
+    K, N = cx.shape
+    inb = (point_valid[None, :]
+           & (cx >= 0) & (cx < size) & (cy >= 0) & (cy < size))
+    n_in = inb.sum(1)
+    # clamped before the phase products (masked points would otherwise
+    # feed large integers into them)
+    cxs = cx.clamp(0, size - 1)
+    cys = cy.clamp(0, size - 1)
+    rows = _nudft_rows(size, F, cx.device)
+    m = inb.to(torch.float32)[..., None]
+    step = max(1, _NUDFT_CHUNK // max(1, N * F))
+    parts = []
+    for k0 in range(0, K, step):
+        sl = slice(k0, k0 + step)
+        # conj(Fh)[k,u,v] = sum_n e^{+i phi_u cx_n} e^{+i phi_v cy_n}
+        # over the points in the grid (the 0/1 mask on the y factors)
+        ax = rows[cxs[sl]].transpose(1, 2)  # (k, F, N)
+        ay = rows[cys[sl], :F2] * m[sl]  # (k, N, F2)
+        parts.append(torch.matmul(ax, ay) * Fg[sl])
+    corr = _partial_idft(torch.cat(parts), n_linear, F)
+    return _mean_scores(corr, n_in, n_valid)
+
+
+def _corr_planes_hist(Fg, cx, cy, valid, n_valid, n_linear: int,
+                      size: int, fft_size: int, per: int = 1):
+    """Exact (K, W, W) mean scores for many planes and a small window:
+    histogram, forward FFT, and the inverse on the window only
+    (_partial_idft); valid (K, N) and n_valid (K,) per plane. Fg holds
+    one spectrum for every `per` consecutive planes (K / per, F, F2)."""
+    F2 = fft_size // 2 + 1
+    hist, n_in = _hist_onehot_masked(cx, cy, valid, size, fft_size)
+    Fh = torch.conj(torch.fft.rfft2(hist))
+    S = (Fh.view(-1, per, fft_size, F2) * Fg[:, None]).view(
+        -1, fft_size, F2)
+    return _mean_scores(_partial_idft(S, n_linear, fft_size), n_in,
+                        n_valid)
+
+
+def _centre_argmax(scores, n_linear: int):
+    """Flat index (per leading row) of the max of (..., W, W) score
+    volumes flattened from the second dim on, with the centred
+    tie-break inside SCORE_NOISE_BAND: among in-band cells the one
+    nearest the window centre, the first in flat order among equals.
+    scores (B, R, W, W) -> (B,)."""
+    B = scores.shape[0]
+    W = 2 * n_linear + 1
+    d = torch.arange(W, device=scores.device) - n_linear
+    r2 = (d[:, None] ** 2 + d[None, :] ** 2).to(torch.float32)
+    flat = scores.reshape(B, -1)
+    m = flat.amax(1, keepdim=True)
+    band = torch.tensor(SCORE_NOISE_BAND, dtype=torch.float32,
+                        device=scores.device)
+    neg = (-r2).reshape(1, 1, W * W).expand(B, flat.shape[1] // (W * W),
+                                             W * W).reshape(B, -1)
+    masked = torch.where(flat >= m - band, neg, -torch.inf)
+    return torch.argmax(masked, dim=1)
+
+
+def _fused_window_cov(score_grids, origins, thetas, points, point_valid,
+                      init_thetas, angular_step, resolution: float,
+                      n_linear: int, size: int, fft_size: int,
+                      best_cand: int, best_theta, oi: int, oj: int,
+                      w_lin: int, w_rot: int, spectra=None, Fg_all=None):
+    """fused_match's stage E: the score-moment covariance (3, 3) over
+    2*w_rot+1 rotations around the winning plane's angle best_theta (a
+    0-dim float32 tensor; clamped to candidate best_cand's range) x
+    +-w_lin cells around its offset (oi, oj), scored by the same exact
+    stage."""
+    dev = points.device
+    f32 = torch.float32
+    R = thetas.shape[1]
+    W = 2 * n_linear + 1
+    n_valid = torch.clamp(point_valid.sum(), min=1).to(f32)
+    if spectra is None and Fg_all is None:
+        Fg_all = grid_spectrum(score_grids, fft_size, size)
+    th0 = init_thetas[best_cand]
+    dr = torch.arange(-w_rot, w_rot + 1, device=dev).to(f32)
+    nr = dr.shape[0]
+    step = torch.as_tensor(angular_step, dtype=f32, device=dev)
+    cth = torch.minimum(
+        torch.maximum(_fma_f32(dr, step.expand(nr), best_theta.expand(nr)),
+                      thetas[best_cand, 0]),
+        thetas[best_cand, R - 1],
+    )
+    corg = origins[best_cand].expand(nr, 2)
+    wcx, wcy = _plane_cells(points, cth, corg, resolution)
+    if spectra is not None:
+        wcorr = _corr_planes_nudft(
+            spectra[best_cand].expand((nr,) + spectra.shape[1:]), wcx, wcy,
+            point_valid, n_valid, n_linear, size, fft_size)
+    else:
+        whist, wn_in = _hist_onehot(wcx, wcy, point_valid, size, fft_size)
+        wcorr = _corr_planes(
+            whist, Fg_all[best_cand].expand((nr,) + Fg_all.shape[1:]),
+            wn_in, n_valid, n_linear, fft_size)
+    dl = np.arange(-w_lin, w_lin + 1)
+    xi = np.clip(oi + n_linear + dl, 0, W - 1)
+    yi = np.clip(oj + n_linear + dl, 0, W - 1)
+    scores_w = wcorr[:, torch.from_numpy(xi).to(dev)][
+        :, :, torch.from_numpy(yi).to(dev)]  # (2 w_rot + 1, L2, L2)
+    # the moments on the host in XLA's CPU order (_window_moments, as
+    # window_cov's): they cancel, and any other order moves them ~1e-4
+    host = torch.cat([scores_w.reshape(-1), cth,
+                      th0.reshape(1)]).cpu().numpy()
+    n = scores_w.numel()
+    res32 = np.float32(resolution)
+    cov = _window_moments(
+        host[:n].reshape(scores_w.shape), host[n:n + nr],
+        np.array([np.float32(oi) * res32, np.float32(oj) * res32]),
+        host[n + nr], np.float32(angular_step), resolution, w_lin,
+        dx=(xi - n_linear - oi).astype(np.float32),
+        dy=(yi - n_linear - oj).astype(np.float32))
+    return torch.from_numpy(cov).to(dev)
+
+
+def _top_k(x, K: int):
+    """The K largest values of a 1-D tensor and their indices, equal
+    values in ascending index order (lax.top_k's order; torch.topk
+    promises none, and the coarse bounds tie often)."""
+    vals, idx = torch.sort(x, descending=True, stable=True)
+    return vals[:K], idx[:K]
+
+
+def fused_match(
+    score_grids,  # (C, S, S) dilated level-0 score grids
+    pooled_grids,  # (C, S, S) level-(depth-1) pooled grids
+    origins,  # (C, 2)
+    thetas,  # (C, R) per-candidate rotation sets
+    live,  # (C,) bool: padding candidates are False
+    points,  # (N, 2)
+    point_valid,  # (N,)
+    init_thetas,  # (C,) search-centre rotations (for the cov window)
+    angular_step,
+    min_score,
+    resolution: float,
+    n_linear: int,
+    size: int,
+    fft_size: int,
+    stride: int,
+    K: int,
+    w_lin: int = 31,
+    w_rot: int = 5,
+    plane_live=None,  # (C, R) bool: planes still in play (paging)
+    spectra=None,  # (C, F, F//2+1) cached grid spectra -> NUDFT stage
+    want_cov: bool = True,
+):
+    """One-call exhaustive-equivalent candidate-set match, the JAX
+    package's fused_match in five stages: A, coarse upper bounds of all
+    C*R (candidate, rotation) planes from the pooled grids; B, the top
+    K planes by bound (ties to the lower index, as lax.top_k); C, their
+    exact scores (the NUDFT stage on cached spectra, the FFT stage
+    without); D, the argmax with the centred tie-break; E, the
+    score-moment covariance over 2*w_rot+1 rotations x +-w_lin cells
+    around the winner. Returns (best_score, pose (3,), cov (3, 3),
+    best_cand, kth_bound, top_idx (K,), bounds (C, R)) as tensors;
+    every plane outside top_idx has a bound <= kth_bound. min_score is
+    taken for the JAX signature; the caller compares against it. With
+    want_cov False, cov is None: the caller that keeps one winner of
+    many calls computes it once (_fused_window_cov, the same stage E on
+    the same inputs)."""
+    dev = score_grids.device
+    f32 = torch.float32
+    C, R = thetas.shape
+    n_valid = torch.clamp(point_valid.sum(), min=1).to(f32)
+    pmin = torch.tensor(PMIN, dtype=f32, device=dev)
+
+    # ---- stage A: coarse upper bounds for all C*R planes ----
+    P = size // stride
+    ko_lo = -((n_linear + stride - 1) // stride)
+    ko_hi = (n_linear + stride - 1) // stride
+    PAD, PADH = -ko_lo, ko_hi
+    m_idx = torch.arange(P, device=dev) * stride
+    m2_idx = torch.clamp(m_idx + stride - 1, max=size - 1)
+    pc = torch.maximum(
+        torch.maximum(pooled_grids[:, m_idx][:, :, m_idx],
+                      pooled_grids[:, m2_idx][:, :, m_idx]),
+        torch.maximum(pooled_grids[:, m_idx][:, :, m2_idx],
+                      pooled_grids[:, m2_idx][:, :, m2_idx]),
+    )
+    P2 = P + PAD + PADH
+    pc = F.pad(pc, (PAD, PADH, PAD, PADH), value=PMIN)
+    th_flat = thetas.reshape(-1)
+    tabs = rotation_tables(th_flat, dev)
+    org_flat = torch.repeat_interleave(origins, R, dim=0)
+    ccx, ccy = _plane_cells(points, th_flat, org_flat, resolution, tabs)
+    bcx = torch.div(ccx, stride, rounding_mode="floor") + PAD
+    bcy = torch.div(ccy, stride, rounding_mode="floor") + PAD
+    chist, cn_in = _hist_onehot(bcx, bcy, point_valid, P2, P2)
+    # every block shift of the PMIN-padded coarse grid (static slices:
+    # a roll would wrap values into the borders)
+    pc_sh = F.pad(pc, (PAD, PADH, PAD, PADH), value=PMIN)
+    shifts = torch.stack(
+        [pc_sh[:, PAD + dx:PAD + dx + P2,
+               PAD + dy:PAD + dy + P2].reshape(C, -1)
+         for dx in range(ko_lo, ko_hi + 1)
+         for dy in range(ko_lo, ko_hi + 1)],
+        dim=-1,
+    )  # (C, P2*P2, KO*KO)
+    b = _bmm(chist.reshape(C, R, -1), shifts)
+    bounds = b.amax(-1)
+    bounds = (bounds + (n_valid - cn_in.reshape(C, R).to(f32)) * pmin
+              ) / n_valid
+    bounds = torch.where(live[:, None], bounds, -torch.inf)
+    if plane_live is not None:
+        bounds = torch.where(plane_live, bounds, -torch.inf)
+
+    # ---- stage B: top-K planes by bound ----
+    top_vals, top_idx = _top_k(bounds.reshape(-1), K)
+    cand_k = torch.div(top_idx, R, rounding_mode="floor")
+    org_k = origins[cand_k]
+    tabs_k = (tabs[0][top_idx], tabs[1][top_idx])
+
+    # ---- stage C: exact correlation for the K planes ----
+    kcx, kcy = _plane_cells(points, th_flat[top_idx], org_k, resolution,
+                            tabs_k)
+    if spectra is not None:
+        corr = _corr_planes_nudft(spectra[cand_k], kcx, kcy, point_valid,
+                                  n_valid, n_linear, size, fft_size)
+        Fg_all = None
+    else:
+        Fg_all = grid_spectrum(score_grids, fft_size, size)
+        hist, n_in = _hist_onehot(kcx, kcy, point_valid, size, fft_size)
+        corr = _corr_planes(hist, Fg_all[cand_k], n_in, n_valid, n_linear,
+                            fft_size)
+    # planes whose bound says they cannot win (padding: -inf bounds)
+    corr = torch.where((top_vals > -torch.inf)[:, None, None], corr,
+                       -torch.inf)
+
+    # ---- stage D: argmax with the centred tie-break ----
+    W = 2 * n_linear + 1
+    flat_idx = int(_centre_argmax(corr[None], n_linear)[0])
+    kk, rem = divmod(flat_idx, W * W)
+    oi = rem // W - n_linear
+    oj = rem % W - n_linear
+    best_score = corr.reshape(-1)[flat_idx]
+    best_plane = int(top_idx[kk])
+    best_cand = best_plane // R
+    best_theta = th_flat[best_plane]
+    res32 = np.float32(resolution)
+    pose = torch.stack([
+        torch.tensor(np.float32(oi) * res32, device=dev),
+        torch.tensor(np.float32(oj) * res32, device=dev),
+        best_theta,
+    ])
+    kth = top_vals[K - 1]
+
+    # ---- stage E: the covariance window through the same stage C ----
+    cov = None
+    if want_cov:
+        cov = _fused_window_cov(
+            score_grids, origins, thetas, points, point_valid,
+            init_thetas, angular_step, resolution, n_linear, size,
+            fft_size, best_cand, best_theta, oi, oj, w_lin, w_rot,
+            spectra, Fg_all)
+    return best_score, pose, cov, best_cand, kth, top_idx, bounds
+
+
+def match_candidates_fused(
+    score_grids,
+    pooled_grids,
+    origins,
+    init_thetas,
+    points,
+    spec: SearchSpec,
+    min_score: float,
+    stride: int,
+    fft_margin_bucket: int = 64,
+    K: int = 64,
+    c_bucket: int = 16,
+    spectra_list=None,  # per-candidate cached grid_spectrum outputs
+):
+    """Host wrapper over fused_match with the contract of
+    match_candidates_pruned: (best_idx or None, score, pose, cov).
+
+    Candidates go through fused_match in chunks of c_bucket (padded
+    with copies of the chunk's first, marked not live), the running
+    best carried across chunks as the floor; the query is padded to a
+    power of two from 256 points. Within a chunk, while the K-th bound
+    beats the floor the next K planes are scored (plane_live masks the
+    scored ones), and when that paging split the noise band the band's
+    planes are scored again in one call. The exact stage is the NUDFT
+    on cached spectra (`spectra_list`, else built per chunk);
+    SLAM_MATCH_EXACT=fft selects the FFT stage. FUSED_CALLS counts the
+    fused_match calls."""
+    dev = score_grids[0].device
+    size = score_grids[0].shape[0]
+    C = len(score_grids)
+    N = len(points)
+    n_bucket = 256
+    while n_bucket < N:
+        n_bucket *= 2
+    pts = np.zeros((n_bucket, 2), np.float32)
+    pts[:N] = points
+    pts_d = torch.from_numpy(pts).to(dev)
+    valid_d = torch.from_numpy(np.arange(n_bucket) < N).to(dev)
+    R_full = 2 * spec.n_angular + 1
+    ks = np.arange(R_full) - spec.n_angular
+    fft_size = size + fft_margin_bucket
+    Cp = max(1, c_bucket)
+    k_eff = min(K, Cp * R_full)
+
+    best = (None, -np.inf, None, None)  # (cand, score, pose, cov)
+    for lo in range(0, C, Cp):
+        chunk = list(range(lo, min(lo + Cp, C)))
+        nc = len(chunk)
+        pad = [chunk[0]] * (Cp - nc)
+        thetas = np.stack(
+            [(float(init_thetas[i]) + ks * spec.angular_step).astype(
+                np.float32) for i in chunk]
+            + [np.zeros(R_full, np.float32)] * (Cp - nc))
+        grids = torch.stack([score_grids[i] for i in chunk + pad])
+        pooled = torch.stack([pooled_grids[i] for i in chunk + pad])
+        origs = torch.stack([origins[i].to(torch.float32)
+                             for i in chunk + pad])
+        live = torch.from_numpy(np.arange(Cp) < nc).to(dev)
+        th0 = torch.from_numpy(np.asarray(
+            [init_thetas[i] for i in chunk] + [0.0] * (Cp - nc),
+            np.float32)).to(dev)
+        thetas_d = torch.from_numpy(thetas).to(dev)
+        if os.environ.get("SLAM_MATCH_EXACT", "nudft") == "fft":
+            spec_stack = None
+        elif spectra_list is not None:
+            spec_stack = torch.stack([spectra_list[i] for i in chunk + pad])
+        else:
+            spec_stack = grid_spectrum(grids, int(fft_size), int(size))
+
+        def call(mask):
+            # the covariance of the chunk's winner alone is computed,
+            # after the chunk (cov_of): the same stage E, once
+            global FUSED_CALLS
+            FUSED_CALLS += 1
+            score, pose, _, cand, kth, scored, bounds = fused_match(
+                grids, pooled, origs, thetas_d, live, pts_d, valid_d, th0,
+                np.float32(spec.angular_step), np.float32(min_score),
+                float(spec.resolution), int(spec.n_linear), int(size),
+                int(fft_size), int(stride), int(k_eff),
+                plane_live=torch.from_numpy(mask).to(dev),
+                spectra=spec_stack, want_cov=False,
+            )
+            host = torch.cat([score.reshape(1), pose,
+                              kth.reshape(1)]).cpu().numpy()
+            return (float(host[0]), host[1:4], cand, float(host[4]),
+                    scored, bounds)
+
+        def cov_of(winner):
+            pose = winner[1]
+            res = np.float32(spec.resolution)
+            return _fused_window_cov(
+                grids, origs, thetas_d, pts_d, valid_d, th0,
+                np.float32(spec.angular_step), float(spec.resolution),
+                int(spec.n_linear), int(size), int(fft_size), winner[2],
+                torch.tensor(pose[2], device=dev),
+                int(np.rint(pose[0] / res)), int(np.rint(pose[1] / res)),
+                31, 5, spectra=spec_stack,
+            ).cpu().numpy().astype(np.float64)
+
+        plane_live = np.ones((Cp, R_full), bool)
+        winners = []  # per pass (score, pose, cand)
+        bounds_np = None
+        while True:
+            # the running best across chunks and passes is the floor: a
+            # plane bounded below it cannot change the outcome
+            score, pose, cand, kth, scored, bounds = call(plane_live)
+            if bounds_np is None:
+                bounds_np = bounds.cpu().numpy()
+            winners.append((score, pose, cand))
+            m_chunk = max(w[0] for w in winners)
+            if kth <= max(min_score, best[1], m_chunk):
+                break
+            pl = plane_live.reshape(-1)
+            pl[scored.cpu().numpy()] = False
+            if not pl.any():
+                break
+            plane_live = pl.reshape(Cp, R_full)
+        m_chunk = max(w[0] for w in winners)
+        if len(winners) > 1 and m_chunk >= min_score:
+            # paging split the noise band across passes: score every
+            # plane whose bound reaches the band in one call (the
+            # single-call tie-break); beyond K of them, the host rule
+            # over the passes' winners (max score, centred in the band)
+            band = bounds_np >= m_chunk - SCORE_NOISE_BAND
+            if band.sum() <= k_eff:
+                chunk_best = call(band)[:3]
+            else:
+                eligible = [w for w in winners
+                            if w[0] >= m_chunk - SCORE_NOISE_BAND]
+                chunk_best = min(
+                    eligible,
+                    key=lambda w: float(np.sum(w[1][:2].astype(
+                        np.float64) ** 2)))
+        else:
+            chunk_best = winners[0]
+        if chunk_best[0] > best[1]:
+            cov = cov_of(chunk_best) if chunk_best[0] >= min_score else None
+            best = (chunk[0] + chunk_best[2], chunk_best[0],
+                    chunk_best[1].astype(np.float64), cov)
+    if best[0] is None or best[1] < min_score:
+        return None, best[1], None, None
+    return best
+
+
+def _volume_cov(scores, thetas, init_theta, resolution: float,
+                n_linear: int):
+    """score_volume_cov as the JAX program's _volume_cov_jnp computes
+    it, in float32 (its offsets are weakly typed there and join the
+    float32 angles): the band weights, their moments about the window
+    centre and the calibration floor. scores (R, W, W) float32 ->
+    (3, 3) float32."""
+    dev = scores.device
+    f32 = torch.float32
+    smax = scores.max()
+    smin = scores.min()
+    delta = torch.maximum(torch.tensor(0.05, dtype=f32, device=dev),
+                          0.15 * (smax - smin))
+    w = torch.clamp(scores - (smax - delta), min=0.0) + 1e-9
+    R, W = scores.shape[0], scores.shape[1]
+    d = ((torch.arange(W, device=dev) - n_linear).to(torch.float64)
+         * resolution).to(f32)
+    X = torch.stack([
+        d[None, :, None].expand(R, W, W),
+        d[None, None, :].expand(R, W, W),
+        (thetas - init_theta)[:, None, None].expand(R, W, W),
+    ], dim=-1).reshape(-1, 3)
+    sflat = w.reshape(-1)
+    ssum = sflat.sum()
+    Xw = X * sflat[:, None]
+    u = Xw.sum(0) / ssum
+    cov = _bmm(Xw.T, X) / ssum - torch.outer(u, u)
+    step = (thetas[1] - thetas[0]) if R > 1 else torch.tensor(
+        0.01, dtype=f32, device=dev)
+    floor = torch.stack([
+        torch.tensor((2.5 * resolution) ** 2, dtype=f32, device=dev),
+        torch.tensor((2.5 * resolution) ** 2, dtype=f32, device=dev),
+        (2.5 * step) ** 2,
+    ])
+    return cov + torch.diag(floor)
+
+
+def pin_eval_batch(
+    spectra,  # (Msub, F, F2) cached grid spectra (grid_spectrum)
+    high_stack,  # (Msub, G2, G2) high-res probability grids
+    high_origins,  # (Msub, 2)
+    ids,  # (B,) submap index per pin query
+    origins,  # (B, 2) score-grid origin minus seed translation
+    seeds,  # (B, 3) seed pose per query
+    pts,  # (B, N, 2)
+    valid,  # (B, N)
+    thetas,  # (B, R) rotation set per query
+    live,  # (B,) padding mask
+    resolution: float,
+    n_linear: int,
+    size: int,
+    fft_size: int,
+    high_res: float = 0.05,
+    iterations: int = 10,
+):
+    """A chunk of per-keyframe pins at once, as the JAX package's
+    pin_eval_batch: the exhaustive window scores of every (pin,
+    rotation) plane (_corr_planes_hist on the cached spectra), the
+    centred argmax, the band-weighted volume covariance (_volume_cov),
+    the high-res refinement with its Censi covariance (refine_pose_cov:
+    the CUDA kernel on the card, one launch per live pin) and the
+    occupancy overlap. Returns (B, 26) float64 rows [score, pose0 (3),
+    wcov (9), refined (3), censi (9), overlap], zero for pins not
+    live."""
+    dev = pts.device
+    f32 = torch.float32
+    B, R = thetas.shape
+    N = pts.shape[1]
+    W = 2 * n_linear + 1
+    n_valid = torch.clamp(valid.sum(1), min=1).to(f32)
+
+    tabs = rotation_tables(thetas.reshape(-1), dev)
+    rep = torch.arange(B, device=dev).repeat_interleave(R)
+    # every plane's points rotated (the rotation of pin b's points by
+    # pin b's thetas: gather the points per plane)
+    c, s = tabs
+    x, y = pts[rep, :, 0], pts[rep, :, 1]  # (B*R, N)
+    px = _fma_f32(c[:, None].expand(B * R, N), x, -(s[:, None] * y))
+    py = _fma_f32(s[:, None].expand(B * R, N), x, c[:, None] * y)
+    inv = torch.tensor(np.float32(1.0) / np.float32(resolution), device=dev)
+    org = origins[rep]
+    cx = torch.floor((px - org[:, 0, None]) * inv).to(torch.int64)
+    cy = torch.floor((py - org[:, 1, None]) * inv).to(torch.int64)
+    nv_rep = n_valid[rep]
+    corr = _corr_planes_hist(spectra[ids], cx, cy, valid[rep], nv_rep,
+                             n_linear, size, fft_size, per=R)
+    scores = corr.reshape(B, R, W, W)
+
+    flat = _centre_argmax(scores, n_linear)
+    best = scores.reshape(B, -1).gather(1, flat[:, None])[:, 0]
+    k = torch.div(flat, W * W, rounding_mode="floor")
+    rem = flat % (W * W)
+    oi = (torch.div(rem, W, rounding_mode="floor") - n_linear).to(f32)
+    oj = (rem % W - n_linear).to(f32)
+    res_t = torch.tensor(np.float32(resolution), device=dev).expand(B)
+    pose0 = torch.stack([
+        _fma_f32(oi, res_t, seeds[:, 0]),
+        _fma_f32(oj, res_t, seeds[:, 1]),
+        thetas.gather(1, k[:, None])[:, 0],
+    ], dim=1)
+    out = torch.zeros((B, 26), dtype=torch.float64, device=dev)
+    for b in np.nonzero(live.cpu().numpy())[0].tolist():
+        wcov = _volume_cov(scores[b], thetas[b], seeds[b, 2], resolution,
+                           n_linear)
+        i = ids[b]
+        refined, censi, probs = refine_pose_cov(
+            high_stack[i], high_origins[i], high_res, pts[b], valid[b],
+            pose0[b], iterations=iterations)
+        overlap = ((probs > 0.55) & valid[b]).sum().to(f32) / n_valid[b]
+        out[b] = torch.cat([
+            best[b, None], pose0[b], wcov.reshape(-1), refined,
+            censi.reshape(-1), overlap[None],
+        ]).to(torch.float64)
+    return out

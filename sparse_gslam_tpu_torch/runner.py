@@ -5,7 +5,8 @@ Usage:
         --dataset-name sim [--postfix -11] [--no-backend] [--eval] \\
         [--max-frames N] [--map-png map.png] [--device cuda|cpu] \\
         [--realtime [--rate R]] [--map-every N] [--live-view HZ] \\
-        [--checkpoint c.npz] [--resume c.npz] [--profile DIR]
+        [--checkpoint c.npz] [--resume c.npz] [--profile DIR] \\
+        [--accel-branch]
 
 Reads <dir>/slam<postfix>.yaml (+ line_extractor.yaml), replays
 <dir>/<name>.log through the SLAM system, writes <dir>/<name>.result
@@ -14,7 +15,8 @@ a PNG, and (with --eval) computes the relations ATE against
 <dir>/<name>.relations and, where <dir>/<name>.gt exists, the loop
 closures' precision and recall. Port of sparse_gslam_tpu/runner.py
 without its TPU-only flags (--prewarm, --platform): --device takes
-their place.
+their place, and --accel-branch selects the backend branch that the JAX
+package picks by platform.
 """
 from __future__ import annotations
 
@@ -117,6 +119,17 @@ def run(argv=None) -> RunResult:
         "--device", default="cuda", choices=("cuda", "cpu"),
         help="device for the solvers, the grids and the matcher",
     )
+    ap.add_argument(
+        "--accel-branch", action="store_true",
+        help="take the JAX package's accelerator branch, which it picks "
+        "by jax.default_backend() != 'cpu' (sparse_gslam_tpu/models/"
+        "backend.py: the rotation count frozen at range_max in "
+        "_match_snapshot, the fused one-call matcher in _match_search "
+        "and rematch_all, the device pin batches of _kf_edges_device), "
+        "on --device; its reference on the CPU is "
+        "scripts/jax_accel_branch.py. Off: the CPU branch on every "
+        "device",
+    )
     args = ap.parse_args(argv)
 
     from .io.providers import create_data_provider
@@ -129,7 +142,7 @@ def run(argv=None) -> RunResult:
     provider = create_data_provider(slam_cfg.data_provider, prefix + ".log")
 
     system = SlamSystem(slam_cfg, ls_cfg, enable_backend=not args.no_backend,
-                        device=args.device)
+                        device=args.device, accel_branch=args.accel_branch)
     system.timing = TimingWriter(prefix)
     if args.resume:
         from .utils.checkpoint import load_checkpoint

@@ -91,9 +91,11 @@ def test_render_map_matches_jax_bitwise(runs):
 
 
 # the backend-on run goes through the first live loop closure
-# (query mid 174, accepted at frame 425)
+# (query mid 174, accepted at frame 425); the accelerator branch's
+# through its first fused-matcher query (mid 68) and pin batches
 RUNNER_CASES = {"frontend_only": (["--no-backend"], N_FRAMES),
-                "backend": ([], 430)}
+                "backend": ([], 430),
+                "accel_branch": (["--accel-branch"], 200)}
 
 
 @pytest.mark.parametrize("case", list(RUNNER_CASES))
@@ -135,7 +137,7 @@ def test_runner_subprocess_imports_no_jax(tmp_path, case):
     assert "IMPORTED []" in out.stdout
     assert f"done: {frames} frames" in out.stdout
     assert "ATE trans" in out.stdout
-    assert ("backend: " in out.stdout) == (case == "backend")
+    assert ("backend: " in out.stdout) == (case != "frontend_only")
     if case == "backend":
         assert "backend: 17 submaps, 1 closures (0 pruned)" in out.stdout
         assert "closures: precision" in out.stdout
