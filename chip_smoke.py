@@ -60,6 +60,9 @@ their failures fail it after the kernels line):
    beam count), whose queries the callers pad up to N = 4096; held in
    full against data/sim-office-beams60.*, with the refinement
    launches by N.
+8a. beams4 -- as phase 8 at 4 beams (scan_size: 4, multicloud_size: 64:
+   the paper's lowest beam count, eval/sweep.py's window), held in full
+   against data/sim-office-beams4.* (scripts/jax_beam_runs.py).
 9. joint  -- as phase 6 on a copy of sim-office whose slam.yaml sets
    final_joint: true (final_cleanup ends with the joint landmark + pose
    solve, Backend.joint_solve), held in full against
@@ -83,8 +86,9 @@ their failures fail it after the kernels line):
    bounds and covariance tolerances FUSED_*, PIN_WCOV_ATOL; pose,
    candidate, pins' argmax and refinement equal), with each call's ms
    on the card and the fused_match calls per query.
-11. realtime -- sim-office through the runner's simulated-realtime mode
-   (--realtime --rate 2 --map-every 100 --live-view 2: the frontend
+11. realtime -- sim-office's first REALTIME_FRAMES frames through the
+   runner's simulated-realtime mode (--realtime --rate 2 --map-every 100
+   --live-view 2 --max-frames REALTIME_FRAMES: the frontend
    paced at twice the log's 5 Hz, the backend thread and the live-view
    thread each on a CUDA stream of its own); every insertion and
    refinement of the backend and main threads replayed torch.equal,
@@ -104,6 +108,13 @@ their failures fail it after the kernels line):
    synthetic chains of 2k and 16k poses (BLOCKED_CASES), against the
    float64 C++ solver on the host at the same iteration count and, at
    2k, against the dense solver on the card; GN iterations/s of both.
+13a. mesh -- the multi-device routes on the card (phase_mesh): the
+   sharded pose-graph solver on in-process meshes of 2 and 4 shards and
+   through a one-rank NCCL group, against the blocked solver and the C++
+   solver at the 2k chain, with GN iterations/s; a two-process NCCL run
+   where the machine has two or more cards (else a line saying it waits
+   for one); the sharded candidate search against the pruned matcher at
+   sim-office's sizes; graft_entry.dryrun_multichip.
 14. joint_solver -- optimize_joint_graph on the card on seeded graphs at
    sim-office's and sim-killian's joint-solve sizes (JOINT_CASES; P =
    512 and 2048 padded poses), against the same solve on the CPU
@@ -117,14 +128,24 @@ their failures fail it after the kernels line):
 16. world  -- with --all-worlds, sim-loops and sim-corridor as phase 6,
    sim-office with algorithm: smf and algorithm: hough (phases smf
    and hough, held against data/sim-office-{smf,hough}.*),
-   sim-killian in realtime at rate 1.5 (as phase 11), and the 60-beam
+   sim-killian in realtime at rate 1.5 (as phase 11), the 60-beam
    sim-office with --accel-branch (beams60_accel, held against
-   data/sim-office-beams60-accel.*; its accel_split beside phase 8's).
+   data/sim-office-beams60-accel.*; its accel_split beside phase 8's),
+   the sweep's other points (beams6, beams8 held in full against
+   data/sim-office-beams{6,8}.*; beams4_accel, the 4-beam run with
+   --accel-branch, its parity reported as beams60_accel's), and
+   mesh_office: sim-office with the backend's mesh and match_mesh set to
+   2-shard meshes on the card (every solve sharded, every candidate
+   search fanned out), held in full against data/sim-office-mesh.* (the
+   JAX run with 2-device meshes, scripts/jax_mesh_run.py).
 17. kernels -- one line per hand-written kernel: launches summed over
    every path's run (launches_by_path has each, counted from 0 before
    it), error against the plain version, and its time, the plain
    version's time and the least time the card could take, summed over
-   the sim-killian run's calls (timed_launches).
+   the sim-killian run's calls (timed_launches); and the refinement
+   kernel's batched mode (refine_pins: the accelerator branch's device
+   pin batches, one launch per batch, each replayed through the batched
+   plain version), summed over the paths that launch it.
 
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX
 or of the JAX package.
@@ -166,7 +187,8 @@ from sparse_gslam_tpu_torch.ops import grid_cuda, refine_cuda
 from sparse_gslam_tpu_torch.ops import matching as matching_mod
 from sparse_gslam_tpu_torch.ops import refine_exact
 from sparse_gslam_tpu_torch.ops import solvers as solvers_mod
-from sparse_gslam_tpu_torch.parallel import dist_solver
+from sparse_gslam_tpu_torch import graft_entry
+from sparse_gslam_tpu_torch.parallel import dist_solver, multihost
 from sparse_gslam_tpu_torch.ops.grid import (
     insert_rays,
     insert_rays_plain,
@@ -280,11 +302,14 @@ WORLDS = {
     "sim-office-beams60-accel": {
         # the 60-beam sim-office down the accelerator branch. Its parity
         # with the JAX run is reported, not held (ROADMAP.md section
-        # 3.4): the closure covariances and the pins' refinement round
-        # otherwise than the JAX program, and this run's 47 pins carry
-        # that into the pose graph until a query's cells cross an edge
-        # (H100: decision line 65 apart, 26 closures against 25). Held:
-        # every insertion and refinement, the launches and "held_counts"
+        # 3.4): the window scores behind the closure covariances and the
+        # centred argmax round otherwise than the JAX program's NUDFT and
+        # FFT (the pins' refinement is bit-equal), which can move a
+        # printed score or a candidate across the argmax's band (H100:
+        # decision line 103 apart, a re-match score printed 0.766
+        # against 0.765; closures, ATE and counts equal). Held: every
+        # insertion, refinement and pin batch, the launches and
+        # "held_counts"
         "dataset": "sim-office",
         "accel": True,
         "parity": "reported",
@@ -300,6 +325,95 @@ WORLDS = {
         "counts": {"frames": 663, "keyframes": 286, "landmarks": 105,
                    "submaps": 26, "loop_closures": 25, "pruned": 0,
                    "local_edges": 28, "kf_pins": 47},
+        "launches": {"precompute": 52, "rebuild_grids": 52, "map": 1},
+    },
+    # the paper's beam sweep (eval/sweep.py; scripts/sweep.py's window
+    # of 16 scans): sim-office read at 4, 6 and 8 beams, against the JAX
+    # package's CPU-branch runs (scripts/jax_beam_runs.py)
+    "sim-office-beams4": {
+        "dataset": "sim-office",
+        "slam_yaml": {"scan_size": "4", "multicloud_size": "64"},
+        "reference": "sim-office-beams4",
+        "ate": "ATE trans 0.2320 +- 0.2950 m, rot 1.948 +- 1.979 deg "
+               "(391 relations)",
+        "backend": "backend: 26 submaps, 0 closures (0 pruned)",
+        "closures": "closures: precision nan (0/0 true), ridge-aware "
+                    "precision nan (0/0), recall 0.00 (0/2 revisit "
+                    "segments detected)",
+        "counts": {"frames": 663, "keyframes": 286, "landmarks": 39,
+                   "submaps": 26, "loop_closures": 0, "pruned": 0,
+                   "local_edges": 4, "kf_pins": 1},
+        "launches": {"precompute": 52, "rebuild_grids": 52, "map": 1},
+    },
+    "sim-office-beams6": {
+        "dataset": "sim-office",
+        "slam_yaml": {"scan_size": "6", "multicloud_size": "96"},
+        "reference": "sim-office-beams6",
+        "ate": "ATE trans 0.1549 +- 0.1795 m, rot 1.360 +- 1.155 deg "
+               "(391 relations)",
+        "backend": "backend: 26 submaps, 1 closures (0 pruned)",
+        "closures": "closures: precision 1.00 (1/1 true), ridge-aware "
+                    "precision 1.00 (1/1), recall 1.00 (2/2 revisit "
+                    "segments detected)",
+        "counts": {"frames": 663, "keyframes": 286, "landmarks": 52,
+                   "submaps": 26, "loop_closures": 1, "pruned": 0,
+                   "local_edges": 4, "kf_pins": 2},
+        "launches": {"precompute": 52, "rebuild_grids": 52, "map": 1},
+    },
+    "sim-office-beams8": {
+        "dataset": "sim-office",
+        "slam_yaml": {"scan_size": "8", "multicloud_size": "128"},
+        "reference": "sim-office-beams8",
+        "ate": "ATE trans 0.1231 +- 0.1360 m, rot 1.139 +- 0.936 deg "
+               "(391 relations)",
+        "backend": "backend: 26 submaps, 5 closures (0 pruned)",
+        "closures": "closures: precision 1.00 (5/5 true), ridge-aware "
+                    "precision 1.00 (5/5), recall 1.00 (2/2 revisit "
+                    "segments detected)",
+        "counts": {"frames": 663, "keyframes": 286, "landmarks": 74,
+                   "submaps": 26, "loop_closures": 5, "pruned": 0,
+                   "local_edges": 9, "kf_pins": 6},
+        "launches": {"precompute": 52, "rebuild_grids": 52, "map": 1},
+    },
+    # the sweep's 4-beam point down the accelerator branch (its 60-beam
+    # point is sim-office-beams60-accel), against the JAX package's run
+    # of that branch (scripts/jax_accel_branch.py on the 4-beam copy);
+    # parity reported as at 60 beams
+    "sim-office-beams4-accel": {
+        "dataset": "sim-office",
+        "accel": True,
+        "parity": "reported",
+        "held_counts": ("frames", "keyframes", "landmarks", "submaps"),
+        "slam_yaml": {"scan_size": "4", "multicloud_size": "64"},
+        "reference": "sim-office-beams4-accel",
+        "ate": "ATE trans 0.2320 +- 0.2950 m, rot 1.948 +- 1.979 deg "
+               "(391 relations)",
+        "backend": "backend: 26 submaps, 0 closures (0 pruned)",
+        "closures": "closures: precision nan (0/0 true), ridge-aware "
+                    "precision nan (0/0), recall 0.00 (0/2 revisit "
+                    "segments detected)",
+        "counts": {"frames": 663, "keyframes": 286, "landmarks": 39,
+                   "submaps": 26, "loop_closures": 0, "pruned": 0,
+                   "local_edges": 4, "kf_pins": 1},
+        "launches": {"precompute": 52, "rebuild_grids": 52, "map": 1},
+    },
+    # sim-office with the backend's two mesh hooks set to 2-shard meshes
+    # (every pose-graph solve sharded, the candidate search fanned out),
+    # against the JAX package's run with 2-device meshes on a virtual CPU
+    # mesh (scripts/jax_mesh_run.py)
+    "sim-office-mesh": {
+        "dataset": "sim-office",
+        "mesh": 2,
+        "reference": "sim-office-mesh",
+        "ate": "ATE trans 0.0820 +- 0.0844 m, rot 0.772 +- 0.590 deg "
+               "(391 relations)",
+        "backend": "backend: 26 submaps, 6 closures (0 pruned)",
+        "closures": "closures: precision 1.00 (6/6 true), ridge-aware "
+                    "precision 1.00 (6/6), recall 1.00 (2/2 revisit "
+                    "segments detected)",
+        "counts": {"frames": 663, "keyframes": 286, "landmarks": 90,
+                   "submaps": 26, "loop_closures": 6, "pruned": 0,
+                   "local_edges": 15, "kf_pins": 4},
         "launches": {"precompute": 52, "rebuild_grids": 52, "map": 1},
     },
     # sim-office with one option of the JAX package's config added to
@@ -416,6 +530,21 @@ WORLDS = {
 # 1.72e-4 m on sim-killian on both devices, 1e-6 on sim-loops, 0 on
 # the other worlds, the 6-decimal file format included)
 FULL_RESULT_ATOL = 1e-3
+# the mesh phase: in-process shard counts; the sharded solver against
+# the blocked one on the card in float64 (the same steps summed in
+# another order; measured 0 on the CPU); the sharded candidate search
+# against the pruned matcher (as tests/test_grid_matching.py holds the
+# JAX package's pair: cuFFT batches the rotations otherwise); the shard
+# counts of graft_entry.dryrun_multichip (at 4 its 24 GNC iterations
+# leave the sharded and dense solves 0.024-0.028 m apart in both
+# packages, above its own 1e-3: ROADMAP section 3)
+MESH_SHARDS = (2, 4)
+MESH_MATCH_SHARDS = (2,)
+MESH_BLOCKED_ATOL = 1e-10
+MESH_MATCH_SCORE_ATOL = 1e-5
+MESH_MATCH_POSE_ATOL = 1e-5
+MESH_MATCH_COV_ATOL = 1e-6
+MESH_DRYRUNS = (2, 8)
 # the blocked solver phase: make_chain_graph sizes (n poses padded to N,
 # C closures, blocks of 128), GN iterations (converged from drift 0.005,
 # so the comparisons hold fixpoints, not iterates in flight), and the
@@ -862,6 +991,15 @@ OPS_RESIDUAL, OPS_JAC_ROW, OPS_COV_ROW = 3, 6, 4
 
 
 def refine_bound(n_stages, n, cells, iterations=10, want_cov=True):
+    """refine_bound_parts as (bound ms, what bounds it, serial-chain
+    latency ms)."""
+    t_bytes, t_ops, chain = refine_bound_parts(n_stages, n, cells,
+                                               iterations, want_cov)
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", chain)
+
+
+def refine_bound_parts(n_stages, n, cells, iterations=10, want_cov=True):
     """Least time for one refinement on an H100 SXM: the larger of the
     bytes it must move over HBM bandwidth and its float32 operations
     over the float32 peak. Bytes: the distinct grid cells its bicubic
@@ -877,9 +1015,10 @@ def refine_bound(n_stages, n, cells, iterations=10, want_cov=True):
     Jacobian, J^T J (18 N) and sum of squares (2 N). Thread 0's scalar
     work (sinf/cosf in float64 once per evaluation, the 3x3 solve, the
     3x3 eigh) is a few hundred operations per iteration, under 0.3 % of
-    these, and left out. Also returns the latency of the serial FMA
-    chains (J^T J walks N + 3 dependent FMAs per iteration) at 4 cycles
-    each at 1.98 GHz, which bounds this design."""
+    these, and left out. Returns the bytes' time and the operations'
+    time (ms) and the latency of the serial FMA chains (J^T J walks
+    N + 3 dependent FMAs per iteration) at 4 cycles each at 1.98 GHz,
+    which bounds this design."""
     K = n + 3
     nw, nwc = -(-K // 32), -(-n // 32)
     nbytes = (cells * 4 + n * 9 + 12 + 8 * n_stages + 4 + 12
@@ -891,10 +1030,8 @@ def refine_bound(n_stages, n, cells, iterations=10, want_cov=True):
         ops += (n_stages * n * OPS_EVAL
                 + n * (OPS_JAC + OPS_COV_ROW + 18 + 2) + nwc)
     chain = n_stages * iterations * K + (n if want_cov else 0)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", chain_ms(chain))
+    return (nbytes / PEAK_BYTES_PER_S * 1e3,
+            ops / PEAK_F32_OPS_PER_S * 1e3, chain_ms(chain))
 
 
 def chain_ms(fmas):
@@ -922,9 +1059,10 @@ class TapRecorder:
         self.evals = []
         self._orig = refine_exact.evaluate
 
-    def _evaluate(self, grid, origin, res, pts, pose, c, s, jac):
-        self.evals.append((grid, origin, res, pts, np.array(pose), c, s))
-        return self._orig(grid, origin, res, pts, pose, c, s, jac)
+    def _evaluate(self, grid, origin, res, pts, pose, c, s, jac, inv=None):
+        self.evals.append((grid, origin, res, pts, np.array(pose), c, s,
+                           inv))
+        return self._orig(grid, origin, res, pts, pose, c, s, jac, inv)
 
     @contextlib.contextmanager
     def active(self):
@@ -937,10 +1075,10 @@ class TapRecorder:
 
     def cells(self):
         seen = {}
-        for grid, origin, res, pts, pose, c, s in self.evals:
+        for grid, origin, res, pts, pose, c, s, inv in self.evals:
             mask = seen.setdefault(id(grid), np.zeros(grid.size, bool))
             mask[refine_exact.tap_cells(grid.shape[0], origin, res, pts,
-                                        pose, c, s)] = True
+                                        pose, c, s, inv)] = True
         return sum(int(m.sum()) for m in seen.values())
 
 
@@ -1235,6 +1373,134 @@ def replay_refinements(calls):
             "refine_serial_chain_ms": chain,
             "refine_serial_chain_ms_all_steps": all_steps_chain,
             "refine_by_n": by_n}
+
+
+class PinRecorder:
+    """Wraps ops/matching.refine_pins (the device pin batches'
+    refinement: the kernel's batched mode, one launch per batch) to keep
+    each call's inputs (the grids and origins its pins read, gathered by
+    pin) and outputs for replay_pins."""
+
+    def __init__(self):
+        self.calls = []
+        self._lock = threading.Lock()
+        self._orig = matching_mod.refine_pins
+
+    def _refine_pins(self, grids, origins, ids, resolution, points,
+                     point_valid, init_pose, iterations=10):
+        out = self._orig(grids, origins, ids, resolution, points,
+                         point_valid, init_pose, iterations)
+        sel = ids.to(torch.long)
+        with self._lock:
+            self.calls.append(((grids.index_select(0, sel).contiguous(),
+                                origins.index_select(0, sel).contiguous(),
+                                resolution, points, point_valid, init_pose,
+                                iterations), out))
+        return out
+
+    @contextlib.contextmanager
+    def active(self):
+        matching_mod.refine_pins = self._refine_pins
+        try:
+            yield self
+        finally:
+            matching_mod.refine_pins = self._orig
+
+
+def plain_pin_replay(job):
+    """Worker: one recorded pin batch (host copies) through the batched
+    plain version, pin by pin, with the grid cells each pin's
+    evaluations read and the seconds."""
+    grids, origins, res, pts, valid, init, iterations = job
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    outs, cells = [], []
+    for b in range(len(pts)):
+        taps = TapRecorder()
+        with taps.active():
+            outs.append(matching_mod.refine_pins_plain(
+                grids[b:b + 1], origins[b:b + 1],
+                torch.zeros(1, dtype=torch.long), res, pts[b:b + 1],
+                valid[b:b + 1], init[b:b + 1], iterations))
+        cells.append(taps.cells())
+    ref = tuple(torch.cat(x) for x in zip(*outs))
+    return ref, cells, time.perf_counter() - t0
+
+
+def replay_pins(calls):
+    """Every recorded pin batch through the batched plain version
+    (torch.equal on pose, covariance and probabilities) and through the
+    kernel's batched mode again, timed as replay_refinements times a
+    launch; the bound sums the batch's pins' bytes and operations."""
+    unequal = []
+    ms = plain_ms = t_bytes = t_ops = err = 0.0
+    pins = 0
+    jobs = [(g.cpu(), o.cpu(), r, p.cpu(), v.cpu(), i.cpu(), it)
+            for (g, o, r, p, v, i, it), _ in calls]
+    for k, ((args, out), (ref, cells, secs)) in enumerate(
+            zip(calls, replay_pool().map(plain_pin_replay, jobs))):
+        g, o, r, p, v, i, it = args
+        plain_ms += secs * 1e3
+        out = [x.cpu() for x in out]
+        if not refine_equal(out, ref):
+            unequal.append(k)
+        err = max(err, max(float((a - b).abs().max())
+                           for a, b in zip(out, ref)))
+        ids = torch.arange(len(p), dtype=torch.int32, device=p.device)
+        ms += min(time_ms(lambda: refine_cuda.refine_pins_cuda(
+            g, o, ids, r, p, v, i, it), 1, warmup=0)
+            for _ in range(REPLAY_TIMINGS))
+        for c in cells:
+            tb, to, _ = refine_bound_parts(1, p.shape[1], c, it, True)
+            t_bytes += tb
+            t_ops += to
+        pins += len(p)
+    return {"pins_calls_unequal": unequal, "pins_max_abs_err": err,
+            "pins_device_ms": ms, "pins_plain_ms": plain_ms,
+            "pins_bound_ms": max(t_bytes, t_ops),
+            "pins_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "pins_refined": pins}
+
+
+@contextlib.contextmanager
+def mesh_hooks(n):
+    """Every SubmapLoopCloser built inside gets 2-shard-style meshes of
+    n shards on this machine's cards in turn (backend.mesh and
+    match_mesh, as tests/test_pipeline_dist.py sets the JAX package's);
+    yields the counts of sharded solves and sharded candidate searches."""
+    counts = {"sharded_solves": 0, "sharded_searches": 0}
+    init = SubmapLoopCloser.__init__
+    solve = dist_solver.optimize_pose_graph_sharded
+    search = matching_mod.match_candidates_sharded
+
+    def hooked(self, *a, **k):
+        init(self, *a, **k)
+        self.mesh = multihost.block_mesh(n, mesh_devices(n))
+        self.match_mesh = multihost.block_mesh(n, mesh_devices(n))
+
+    def counted(name, fn):
+        def wrapped(*a, **k):
+            counts[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    SubmapLoopCloser.__init__ = hooked
+    dist_solver.optimize_pose_graph_sharded = counted("sharded_solves", solve)
+    matching_mod.match_candidates_sharded = counted("sharded_searches",
+                                                    search)
+    try:
+        yield counts
+    finally:
+        SubmapLoopCloser.__init__ = init
+        dist_solver.optimize_pose_graph_sharded = solve
+        matching_mod.match_candidates_sharded = search
+
+
+def mesh_devices(n):
+    """n shards on this machine's cards in turn (several on one card
+    where there are fewer cards)."""
+    k = torch.cuda.device_count()
+    return [torch.device(f"cuda:{i % k}") for i in range(n)]
 
 
 def phase_main():
@@ -1687,16 +1953,20 @@ def phase_full(world, phase, out_dir):
         rec = InsertRecorder()
         solves = SolveRecorder()
         refines = RefineRecorder()
+        pins = PinRecorder()
         cleanup = CleanupRecorder()
         tee = Tee(sys.stdout)
         queries = FusedQueryCounter()
         os.environ["SLAM_LOG_MATCHES"] = "1"
         grid_cuda.reset_launches(grid_cuda.insert_rays_cuda,
-                                 refine_cuda.refine_cuda)
+                                 refine_cuda.refine_cuda,
+                                 refine_cuda.refine_pins_cuda)
         t0 = time.perf_counter()
         try:
             with rec.active(), solves.active(), refines.active(), \
-                    cleanup.active(), queries.active(), \
+                    pins.active(), cleanup.active(), queries.active(), \
+                    (mesh_hooks(ref["mesh"]) if ref.get("mesh")
+                     else contextlib.nullcontext({})) as meshed, \
                     contextlib.redirect_stdout(tee):
                 r = runner.run([
                     "--dataset-dir", data, "--dataset-name", dataset,
@@ -1708,6 +1978,7 @@ def phase_full(world, phase, out_dir):
         total_s = time.perf_counter() - t0
         launches = grid_cuda.insert_rays_cuda.launches
         refine_launches = refine_cuda.refine_cuda.launches
+        pins_launches = refine_cuda.refine_pins_cuda.launches
         cmp = compare_run(world, tee.buf.getvalue(),
                           os.path.join(data, f"{dataset}.result"))
         decisions = cmp.pop("decisions")
@@ -1728,6 +1999,7 @@ def phase_full(world, phase, out_dir):
         replay = replay_refinements(refines.calls)
         replay["refine_replay_s"] = time.perf_counter() - t1
         refine_unequal = replay["refine_calls_unequal"]
+        pins_replay = replay_pins(pins.calls)
 
         sysm = r.system
         be = sysm.backend
@@ -1763,6 +2035,19 @@ def phase_full(world, phase, out_dir):
         if refine_unequal:
             problems.append(f"refinements differ from the plain version: "
                             f"{refine_unequal[:5]}")
+        if pins_launches != len(pins.calls):
+            problems.append(f"{pins_launches} batched refinement launches "
+                            f"for {len(pins.calls)} pin batches")
+        if bool(ref.get("accel")) != bool(pins.calls):
+            problems.append(f"{len(pins.calls)} device pin batches")
+        if pins_replay["pins_calls_unequal"]:
+            problems.append(f"pin batches differ from the batched plain "
+                            f"version: "
+                            f"{pins_replay['pins_calls_unequal'][:5]}")
+        if ref.get("mesh") and not (meshed["sharded_solves"]
+                                    and meshed["sharded_searches"]):
+            problems.append(f"the mesh hooks did not route the run: "
+                            f"{meshed}")
         for key in ref.get("held_counts", counts):
             if counts[key] != ref["counts"][key]:
                 problems.append(f"{key} {counts[key]} != "
@@ -1803,6 +2088,8 @@ def phase_full(world, phase, out_dir):
             "refine_launches": refine_launches,
             "refine_calls": len(refines.calls),
             "refine_calls_replayed": len(refines.calls), **replay,
+            "pins_launches": pins_launches, "pin_batches": len(pins.calls),
+            **pins_replay, **meshed,
             "decision_lines": len(decisions), "decision_log": log_path,
             "problems": problems,
             **solve_info,
@@ -1827,6 +2114,7 @@ def phase_full(world, phase, out_dir):
         })
         return {"launches": launches, "insertions": rec.calls,
                 "refine_launches": refine_launches, "replay": replay,
+                "pins_launches": pins_launches, "pins_replay": pins_replay,
                 "frontend_ms": ft * 1e3,
                 "split": {**prof_s, "final_cleanup": cleanup.cleanup_s,
                           "frame_loop": r.wall_s},
@@ -1874,7 +2162,7 @@ def realtime_invariants(system, result_path):
     return problems
 
 
-def phase_realtime(world, rate, out_dir, batch_ms):
+def phase_realtime(world, rate, out_dir, batch_ms, frames=None):
     """The runner's simulated-realtime mode on a temporary copy of
     datasets/<world> on cuda: the frontend paced at the log's timestamps
     over `rate`, the backend thread free-running on its own stream, the
@@ -1892,13 +2180,16 @@ def phase_realtime(world, rate, out_dir, batch_ms):
     snapshot the backend sees depends on timing), launches by thread
     and the live view's renders and render errors. Fails on a thread's
     exception, a render error, a broken invariant (realtime_invariants)
-    or a frame not processed."""
+    or a frame not processed. `frames` cuts the log to its first frames
+    (the runner's --max-frames)."""
     dataset = WORLDS[world].get("dataset", world)
     tmp = tempfile.mkdtemp(prefix=f"chip_smoke_rt_{world}_")
     try:
         data = os.path.join(tmp, dataset)
         shutil.copytree(os.path.join(REPO, "datasets", dataset), data)
         n_log = sum(1 for _ in open(os.path.join(data, f"{dataset}.log")))
+        if frames:
+            n_log = min(n_log, frames)
         png = os.path.join(tmp, "map.png")
         rec, refines, tee = InsertRecorder(), RefineRecorder(), Tee(
             sys.stdout)
@@ -1914,7 +2205,7 @@ def phase_realtime(world, rate, out_dir, batch_ms):
                     "--realtime", "--rate", str(rate), "--map-every", "100",
                     "--live-view", "2", "--eval", "--map-png", png,
                     "--device", "cuda",
-                ])
+                ] + (["--max-frames", str(frames)] if frames else []))
         except Exception as e:  # a thread's exception ends the run
             problems.append(f"the run raised {e!r}")
         torch.cuda.synchronize()
@@ -2008,6 +2299,10 @@ def phase_realtime(world, rate, out_dir, batch_ms):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the default realtime phase's depth: sim-office's first 330 of 663
+# frames (the first half of the log), a cut that keeps the default
+# run well under its 1,200 s with the beams4 and mesh phases (PERF.md)
+REALTIME_FRAMES = 330
 # the live view's map renders of a realtime run replayed through the
 # plain version (phase_realtime), and the name of its thread
 LIVE_VIEW_REPLAYS = 12
@@ -2460,6 +2755,156 @@ def phase_blocked():
     return rows
 
 
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_mesh():
+    """The multi-device routes on the card. The sharded pose-graph
+    solver (dist_solver.optimize_pose_graph_sharded) on in-process
+    meshes of MESH_SHARDS shards (on this machine's cards in turn, all
+    on cuda:0 where there is one) and through a one-rank NCCL group from
+    multihost.initialize (the collectives' path with real NCCL calls), at
+    BLOCKED_CASES' first chain, against the blocked solver on the card
+    (MESH_BLOCKED_ATOL) and the float64 C++ solver on the host
+    (BLOCKED_NATIVE_ATOL), with GN iterations/s of each; a two-process
+    NCCL run (scripts/torch_dist_test_worker.py) where the machine has
+    two or more cards, else a line that says it waits for one; the
+    sharded candidate search (match_candidates_sharded) on the fused
+    phase's seeded walls at sim-office's sizes against the pruned
+    matcher on the card (the same candidate; score, pose and covariance
+    within MESH_MATCH_*); graft_entry.dryrun_multichip at MESH_DRYRUNS
+    shards. Returns the problems."""
+    problems = []
+    n, N, C = BLOCKED_CASES[0]
+    fields, _ = make_chain_graph(n_poses=n, n_closures=C, pad_to=N,
+                                 drift=0.005)
+    g = to_pose_graph(fields, "cuda")
+    plan = dist_solver.partition_of(g, N // 128)
+    bg, sg = dist_solver.split_graph(g, plan)
+
+    def timed_solve(fn):
+        fn()  # warm-up
+        secs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return out.reshape(-1, 3), min(secs)
+
+    blocked, b_s = timed_solve(lambda: dist_solver.optimize_pose_graph_blocked(
+        bg, sg, 1.0, BLOCKED_ITERS))
+    nat = posegraph_gn_native(g, 1.0, BLOCKED_ITERS)
+    row = {"phase": "mesh", "N": N, "poses": n, "closures": C,
+           "blocks": plan.n_blocks, "iterations": BLOCKED_ITERS,
+           "cards": torch.cuda.device_count(),
+           "blocked_gn_iters_per_s": BLOCKED_ITERS / b_s, "sharded": {}}
+
+    def hold(key, mesh):
+        out, secs = timed_solve(
+            lambda: dist_solver.optimize_pose_graph_sharded(
+                bg, sg, 1.0, mesh, BLOCKED_ITERS))
+        e_b = float((out - blocked).abs().max())
+        e_n = float(np.abs(out.cpu().numpy()[:n] - nat[:n]).max())
+        row["sharded"][key] = {
+            "shards": mesh.size, "devices": [str(d) for d in mesh.devices],
+            "processes": mesh.world, "gn_iters_per_s": BLOCKED_ITERS / secs,
+            "s_per_solve": secs, "max_abs_err_blocked": e_b,
+            "max_abs_err_native": e_n}
+        if not (e_b <= MESH_BLOCKED_ATOL and e_n <= BLOCKED_NATIVE_ATOL):
+            problems.append(f"sharded solver ({key}) vs blocked {e_b}, "
+                            f"vs C++ {e_n}")
+
+    for k in MESH_SHARDS:
+        hold(f"in_process_{k}", multihost.block_mesh(k, mesh_devices(k)))
+    started = multihost.initialize(f"localhost:{free_port()}", 1, 0,
+                                   backend="nccl", single_rank_group=True)
+    try:
+        mesh = multihost.block_mesh(2, mesh_devices(1) * 2)
+        row["nccl_group"] = {"started": started, "world": mesh.world,
+                             "backend": torch.distributed.get_backend()}
+        hold("nccl_1_rank_2", mesh)
+    finally:
+        multihost.shutdown()
+    if torch.cuda.device_count() >= 2:
+        port = str(free_port())
+        worker = os.path.join(REPO, "scripts", "torch_dist_test_worker.py")
+        procs = [subprocess.Popen(
+            [sys.executable, worker, str(pid), "2", port, "--device",
+             "cuda"], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for pid in (0, 1)]
+        outs = []
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        ok = all(p.returncode == 0 and f"proc {i}: OK" in o
+                 for i, (p, o) in enumerate(zip(procs, outs)))
+        row["two_process_nccl"] = {"ran": True, "ok": ok,
+                                   "tail": [o[-400:] for o in outs]}
+        if not ok:
+            problems.append(f"two-process NCCL run failed: {outs}")
+    else:
+        row["two_process_nccl"] = {
+            "ran": False, "reason": "this machine has one card: the "
+            "two-process NCCL run waits for a machine with two or more"}
+        print("mesh: the two-process NCCL run waits for a machine with "
+              "two or more cards (this one has one)", flush=True)
+
+    # the sharded candidate search against the pruned matcher
+    inp = fused_inputs(0)
+    dev = torch.device("cuda")
+    spec = matching_mod.search_spec(5.0, 1.0, 10.0, 0.1)
+    probs = torch.from_numpy(inp["grids"][:FUSED_CANDIDATES]).to(dev)
+    pyr = [precompute_pyramid(p, 5) for p in probs]
+    org = torch.from_numpy(inp["origin"]).to(dev)
+    origins = [org] * FUSED_CANDIDATES
+    stride = 1 << 4
+    seq = matching_mod.match_candidates_pruned(
+        [p[0] for p in pyr], [p[4] for p in pyr], origins, inp["th0"],
+        inp["query"], spec, 0.7, stride)
+    row["matcher"] = {"candidates": FUSED_CANDIDATES,
+                      "points": FUSED_POINTS, "sequential": {
+                          "index": seq[0], "score": seq[1]}}
+    for k in MESH_MATCH_SHARDS:
+        mesh = multihost.block_mesh(k, mesh_devices(k))
+        t0 = time.perf_counter()
+        sh = matching_mod.match_candidates_sharded(
+            [p[0] for p in pyr], origins, inp["th0"], inp["query"], spec,
+            mesh, 0.7)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        same = sh[0] == seq[0] and seq[0] is not None
+        d = ({"score": abs(sh[1] - seq[1]),
+              "pose": float(np.abs(sh[2] - seq[2]).max()),
+              "cov": float(np.abs(sh[3] - seq[3]).max())} if same else {})
+        row["matcher"][f"sharded_{k}"] = {"index": sh[0], "score": sh[1],
+                                          "ms": ms, "max_abs_err": d}
+        if not (same and d["score"] <= MESH_MATCH_SCORE_ATOL
+                and d["pose"] <= MESH_MATCH_POSE_ATOL
+                and d["cov"] <= MESH_MATCH_COV_ATOL):
+            problems.append(f"sharded matcher on {k} shards: {sh[0]} "
+                            f"against {seq[0]}, {d}")
+    row["dryrun_multichip"] = {}
+    for k in MESH_DRYRUNS:
+        try:
+            row["dryrun_multichip"][str(k)] = graft_entry.dryrun_multichip(k)
+        except AssertionError as e:
+            row["dryrun_multichip"][str(k)] = str(e)
+            problems.append(f"dryrun_multichip({k}): {e}")
+    row["problems"] = problems
+    emit(row)
+    return problems
+
+
 def joint_case(n, P, n_lms, L, e_live, E, c_live, C, seed=0):
     """A seeded joint graph (numpy fields, JointGraphData layout) shaped
     as a final joint solve: n live poses of P driving four laps of a
@@ -2639,6 +3084,38 @@ def phase_joint_solver():
     return rows
 
 
+def pins_kernel_line(runs):
+    """The kernels line's entry for the refinement kernel's batched mode
+    (refine_pins_launch: the device pin batches, one launch per batch),
+    its launches by path and its times summed over the paths that ran
+    it (the accelerator-branch runs)."""
+    paths = {k: v for k, v in runs.items() if v.get("pins_launches")}
+    rp = [v["pins_replay"] for v in paths.values()]
+    return {
+        "name": "refine_pins",
+        "route": "cuda",
+        "source": "sparse_gslam_tpu_torch/csrc/refine_pose.cu",
+        "replaces": "sparse_gslam_tpu/ops/matching.py:855",
+        "replaces_what": "refine_pose_cov under jax.vmap in the XLA program "
+                         "jit(pin_eval_batch) (:764-869; finish_one "
+                         ":834-868); no Pallas kernel",
+        "launches": sum(v.get("pins_launches", 0) for v in runs.values()),
+        "launches_by_path": {k: v.get("pins_launches", 0)
+                             for k, v in runs.items()},
+        "pins_refined": sum(r["pins_refined"] for r in rp),
+        "max_abs_err": max([r["pins_max_abs_err"] for r in rp] or [0.0]),
+        "matched": not any(r["pins_calls_unequal"] for r in rp),
+        "tolerance": "bit-exact (torch.equal)",
+        "ms": sum(r["pins_device_ms"] for r in rp),
+        "plain_ms": sum(r["pins_plain_ms"] for r in rp),
+        "bound_ms": sum(r["pins_bound_ms"] for r in rp),
+        "bound_by": max(("bytes", "operations"), key=lambda b: sum(
+            r["pins_bound_ms"] for r in rp if r["pins_bound_by"] == b)),
+        "library_ms": None,
+        "timed": f"sum over the pin batches of {sorted(paths)}",
+    }
+
+
 def time_run_calls(calls):
     """The kernel, its plain twin and the bound, each summed over the
     main path's insertions (device ms; the plain twin once per call)."""
@@ -2690,6 +3167,8 @@ def main() -> int:
                                 args.out),
             "beams60": timed("beams60", phase_full, "sim-office-beams60",
                              "beams60", args.out),
+            "beams4": timed("beams4", phase_full, "sim-office-beams4",
+                            "beams4", args.out),
             "joint": timed("joint", phase_full, "sim-office-joint", "joint",
                            args.out),
             "marginal": timed("marginal", phase_full, "sim-office-marginal",
@@ -2701,9 +3180,11 @@ def main() -> int:
           "cpu_branch": runs["backend"]["split"]})
     checks = timed("fused", phase_fused)["problems"]
     runs["realtime"] = timed("realtime", phase_realtime, "sim-office", 2.0,
-                             args.out, runs["backend"]["frontend_ms"])
+                             args.out, runs["backend"]["frontend_ms"],
+                             REALTIME_FRAMES)
     runs["resume"] = timed("resume", phase_resume, args.out)
     timed("blocked", phase_blocked)
+    checks += timed("mesh", phase_mesh)
     timed("joint_solver", phase_joint_solver)
     runs["killian"] = timed("killian", phase_full, "sim-killian", "killian",
                             args.out)
@@ -2724,6 +3205,16 @@ def main() -> int:
         emit({"phase": "accel_split", "world": "sim-office-beams60",
               "accel_branch": runs["beams60_accel"]["split"],
               "cpu_branch": runs["beams60"]["split"]})
+        for beams in (6, 8):
+            runs[f"beams{beams}"] = timed(
+                f"beams{beams}", phase_full, f"sim-office-beams{beams}",
+                f"beams{beams}", args.out)
+        runs["beams4_accel"] = timed(
+            "beams4_accel", phase_full, "sim-office-beams4-accel",
+            "beams4_accel", args.out)
+        runs["mesh_office"] = timed("mesh_office", phase_full,
+                                    "sim-office-mesh", "mesh_office",
+                                    args.out)
     failed = checks + [p for r in runs.values() for p in r["problems"]]
     killian = runs["killian"]
     ms, plain_ms, bound_ms, bound_by, err = timed(
@@ -2775,7 +3266,7 @@ def main() -> int:
         "timed": f"sum over the sim-killian run's "
                  f"{killian['refine_launches']} refinements",
         "by_n": {k: v["replay"]["refine_by_n"] for k, v in runs.items()},
-    }]})
+    }, pins_kernel_line(runs)]})
     print(smi, flush=True)
     emit({"seconds": seconds, "total_s": time.perf_counter() - t_start})
     if failed:

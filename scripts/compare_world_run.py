@@ -8,9 +8,14 @@ its slam.yaml: sim-office-refine1 (final_refine_rounds: 1),
 sim-office-beams60 (scan_size: 60, multicloud_size: 960),
 sim-office-joint (final_joint: true), sim-office-marginal
 (chain_info_mode: marginal), sim-office-smf (algorithm: smf) or
-sim-office-hough (algorithm: hough), and sim-office-accel and
-sim-office-beams60-accel (sim-office and its 60-beam copy run with the
-runner's --accel-branch, against scripts/jax_accel_branch.py's run).
+sim-office-hough (algorithm: hough), sim-office-beams4, -beams6 and
+-beams8 (scan_size 4/6/8, multicloud_size 16 times that: the beam
+sweep's points, against scripts/jax_beam_runs.py's runs),
+sim-office-accel, sim-office-beams60-accel and sim-office-beams4-accel
+(sim-office and its 60- and 4-beam copies run with the runner's
+--accel-branch, against scripts/jax_accel_branch.py's runs), and
+sim-office-mesh (sim-office with the backend's mesh and match_mesh set to
+2-shard meshes, against scripts/jax_mesh_run.py's run).
 LOG is the run's standard output under SLAM_LOG_MATCHES=1 (python -m
 sparse_gslam_tpu_torch.runner --dataset-dir <copy of the dataset>
 --dataset-name <dataset> --eval ...); RESULT is the .result it wrote. Prints chip_smoke.compare_run's

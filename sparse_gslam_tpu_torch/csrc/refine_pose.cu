@@ -7,6 +7,12 @@
 // sparse_gslam_tpu/ops/matching.py:545-747, which the port ran as ~100
 // eager torch launches per Gauss-Newton iteration.
 //
+// refine_pins_launch is the batched mode for the device pin batches
+// (ops/matching.py pin_eval_batch; the JAX program refines them under
+// jax.vmap, sparse_gslam_tpu/ops/matching.py:834-868): one launch per
+// batch, one block per pin, each against its own grid of a stack, in
+// the vmapped program's arithmetic (the header's GridRef::vmapped).
+//
 // Design: one block per refinement problem, a fixed block of T = 512
 // threads (rpx::THREADS) whatever the padded point count (N = 256, 512,
 // 1024, 2048, 4096 or 8192, the sizes the callers pad to). Thread tid owns
@@ -86,6 +92,39 @@ __global__ void __launch_bounds__(rpx::THREADS)
   rpx::refine_block(ex, P, sh, reinterpret_cast<float*>(rows4));
 }
 
+// The device pin batches (matching.pin_eval_batch): block b refines pin
+// b against grid ids[b] of the (M, size, size) stack, one stage with
+// its covariance, in the vmapped program's arithmetic (GridRef::vmapped)
+__global__ void __launch_bounds__(rpx::THREADS)
+    refine_pins_kernel(const float* grids, int size, const float* origins,
+                       const int* ids, float res, const float* pts,
+                       const uint8_t* valid, const float* init,
+                       const float* y0, int n, int iterations, float* pose,
+                       float* cov, float* probs, int* iters) {
+  extern __shared__ float4 rows4[];  // 16-byte aligned: rpx::load4
+  __shared__ rpx::Shared sh;
+  const int b = blockIdx.x;
+  const int id = ids[b];
+  rpx::Problem P;
+  P.grid[0] = {grids + (size_t)id * size * size, size, origins[2 * id],
+               origins[2 * id + 1], res, 1, 1.0f / res};
+  P.grid[1] = P.grid[0];
+  P.stages = 1;
+  P.n = n;
+  P.pts = pts + (size_t)b * n * 2;
+  P.valid = valid + (size_t)b * n;
+  P.init = init + 3 * b;
+  P.y0 = y0;
+  P.iterations = iterations;
+  P.want_cov = true;
+  P.pose_out = pose + 3 * b;
+  P.cov_out = cov + 9 * b;
+  P.probs_out = probs + (size_t)b * n;
+  P.iters_out = iters + 2 * b;
+  DeviceExec ex;
+  rpx::refine_block(ex, P, sh, reinterpret_cast<float*>(rows4));
+}
+
 __global__ void sincosf_kernel(uint32_t start, uint32_t step, uint64_t n,
                                float* sin_out, float* cos_out) {
   const uint64_t k = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -135,5 +174,27 @@ extern "C" int refine_pose_launch(
   refine_pose_kernel<<<batch, rpx::THREADS, smem, (cudaStream_t)stream>>>(
       g0, size0, origin0, res0, g1, size1, origin1, res1, stages, pts,
       valid, init, y0, n, iterations, want_cov, pose, cov, probs, iters);
+  return (int)cudaGetLastError();
+}
+
+// One launch for a batch of pins: `batch` blocks of rpx::THREADS threads
+// on `stream`, block b refining pin b (points, mask and initial pose
+// (batch, n, 2), (batch, n), (batch, 3)) against grid ids[b] of the
+// (M, size, size) stack with origins (M, 2), as refine_pins_kernel.
+// Returns 0 or a cudaError_t.
+extern "C" int refine_pins_launch(
+    const float* grids, int size, const float* origins, const int* ids,
+    float res, const float* pts, const uint8_t* valid, const float* init,
+    const float* y0, int batch, int n, int iterations, float* pose,
+    float* cov, float* probs, int* iters, void* stream) {
+  if (!rpx::takes_points(n) || batch < 1 || iterations < 0)
+    return (int)cudaErrorInvalidValue;
+  const int smem = rpx::rows_bytes(n);
+  const cudaError_t err = cudaFuncSetAttribute(
+      refine_pins_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  refine_pins_kernel<<<batch, rpx::THREADS, smem, (cudaStream_t)stream>>>(
+      grids, size, origins, ids, res, pts, valid, init, y0, n, iterations,
+      pose, cov, probs, iters);
   return (int)cudaGetLastError();
 }

@@ -167,6 +167,11 @@ struct GridRef {
   int size;
   float o0, o1;  // origin
   float res;     // resolution, rounded to float32
+  // the device pin batches' program (jax.vmap with the resolution a
+  // static constant): the division by res is a multiply by its float32
+  // reciprocal inv, and the tangents carry inv (eval_point)
+  int vmapped = 0;
+  float inv = 0.0f;
 };
 
 // where(grid > 0, grid, PMIN)
@@ -189,11 +194,19 @@ RPX_HD int first_tap(float fl, int size) {
   return (int)(v < -3 ? -3 : (v > size - 1 ? size - 1 : v));
 }
 
-// Catmull-Rom weights of the fractional offset of u - 0.5, and the
-// offset t, t^2 and floor that the tangent and the taps use
-RPX_HD void weights(float u, float w[4], float* fl, float* t_out,
+// first_tap as the vmapped program converts: clamped to int32, NaN to 0
+RPX_HD int first_tap_saturating(float fl, int size) {
+  const int64_t f = fl != fl ? 0
+                    : (fl <= -2147483648.0f ? -2147483648LL
+                       : (fl >= 2147483648.0f ? 2147483647LL : (int64_t)fl));
+  const int64_t v = f - 1;
+  return (int)(v < -3 ? -3 : (v > size - 1 ? size - 1 : v));
+}
+
+// Catmull-Rom weights of the fractional offset t of t0 = u - 0.5, and
+// t, t^2 and floor(t0) that the tangent and the taps use
+RPX_HD void weights(float t0, float w[4], float* fl, float* t_out,
                     float* t2_out) {
-  const float t0 = u + -0.5f;
   *fl = floorf(t0);
   const float t = t0 - *fl;
   const float t2 = t * t;
@@ -217,18 +230,42 @@ RPX_HD void dweights(float dt, float t, float t2, float dw[4]) {
   dw[3] = fma32(0.5f, d3, -(0.5f * d2));
 }
 
+// The vmapped program's tangent of the weights: num the tangent's
+// numerator (the moved point's derivative in metres), dt = num * inv
+// reassociated onto t (d2 = 2 num (t inv)) and onto the constants
+// (0.5 dt = num (0.5 inv))
+RPX_HD void dweights_vmapped(float num, float t, float t2, float inv,
+                             float dw[4]) {
+  const float ti = t * inv, t2i = t2 * inv, half = 0.5f * inv;
+  const float m = num * ti;
+  const float d2 = m + m;
+  const float d3 = fma32(num, t2i, t * d2);
+  dw[0] = fma32(-num, half, fma32(-d3, 0.5f, d2));
+  dw[1] = fma32(d3, 1.5f, -(d2 * 2.5f));
+  dw[2] = fma32(num, half, fma32(d2, 2.0f, -(d3 * 1.5f)));
+  dw[3] = fma32(d3, 0.5f, -(d2 * 0.5f));
+}
+
 // Interpolated grid value at the query point (px, py) moved by the pose
 // (p0, p1, angle with cos c, sin s); with J != nullptr also its
 // derivative (d/dx, d/dy, d/dtheta), before the residual's sign and
 // weights.
 RPX_HD float eval_point(const GridRef& G, float px, float py, float p0,
                         float p1, float c, float s, float* J) {
-  const float u = ((fma32(c, px, -(s * py)) + p0) - G.o0) / G.res;
-  const float v = ((fma32(s, px, c * py) + p1) - G.o1) / G.res;
+  const float du0 = (fma32(c, px, -(s * py)) + p0) - G.o0;
+  const float dv0 = (fma32(s, px, c * py) + p1) - G.o1;
   float wu[4], wv[4], flu, flv, tu, tu2, tv, tv2;
-  weights(u, wu, &flu, &tu, &tu2);
-  weights(v, wv, &flv, &tv, &tv2);
-  const int bu = first_tap(flu, G.size), bv = first_tap(flv, G.size);
+  if (G.vmapped) {
+    weights(fma32(du0, G.inv, -0.5f), wu, &flu, &tu, &tu2);
+    weights(fma32(dv0, G.inv, -0.5f), wv, &flv, &tv, &tv2);
+  } else {
+    weights(du0 / G.res + -0.5f, wu, &flu, &tu, &tu2);
+    weights(dv0 / G.res + -0.5f, wv, &flv, &tv, &tv2);
+  }
+  const int bu = G.vmapped ? first_tap_saturating(flu, G.size)
+                           : first_tap(flu, G.size);
+  const int bv = G.vmapped ? first_tap_saturating(flv, G.size)
+                           : first_tap(flv, G.size);
   float vals[4][4];
   for (int a = 0; a < 4; ++a) {
     const int iu = clamp_tap(bu + a, G.size);
@@ -246,11 +283,20 @@ RPX_HD float eval_point(const GridRef& G, float px, float py, float p0,
     const float one = 1.0f / G.res;
     const float du[3] = {one, 0.0f, (fma32(-s, px, -(c * py)) + 0.0f) / G.res};
     const float dv[3] = {0.0f, one, (fma32(c, px, -(s * py)) + 0.0f) / G.res};
+    // the vmapped program's numerators: the theta tangent as one FMA
+    // of two products (the one its object code fuses)
+    const float nu[3] = {1.0f, 0.0f, fma32(px, -s, -(py * c)) + 0.0f};
+    const float nv[3] = {0.0f, 1.0f, fma32(py, -s, px * c) + 0.0f};
     RPX_UNROLL  // (keeps du, dv and J in registers on the card)
     for (int k = 0; k < 3; ++k) {
       float dwu[4], dwv[4], d11[4];
-      dweights(du[k], tu, tu2, dwu);
-      dweights(dv[k], tv, tv2, dwv);
+      if (G.vmapped) {
+        dweights_vmapped(nu[k], tu, tu2, G.inv, dwu);
+        dweights_vmapped(nv[k], tv, tv2, G.inv, dwv);
+      } else {
+        dweights(du[k], tu, tu2, dwu);
+        dweights(dv[k], tv, tv2, dwv);
+      }
       for (int b = 0; b < 4; ++b) {
         d11[b] = dwu[0] * vals[0][b];
         for (int a = 1; a < 4; ++a) d11[b] = fma32(dwu[a], vals[a][b], d11[b]);

@@ -63,6 +63,40 @@ extern "C" int refine_pose_host(
   return 0;
 }
 
+// Same arguments as refine_pins_launch, on host memory. Returns 0, or 1
+// for arguments the kernel does not take.
+extern "C" int refine_pins_host(
+    const float* grids, int size, const float* origins, const int* ids,
+    float res, const float* pts, const uint8_t* valid, const float* init,
+    const float* y0, int batch, int n, int iterations, float* pose,
+    float* cov, float* probs, int* iters) {
+  if (!rpx::takes_points(n) || batch < 1 || iterations < 0) return 1;
+  rpx::Shared sh;
+  std::vector<float> rows(rpx::rows_bytes(n) / sizeof(float));
+  for (int b = 0; b < batch; ++b) {
+    const int id = ids[b];
+    rpx::Problem P;
+    P.grid[0] = {grids + (size_t)id * size * size, size, origins[2 * id],
+                 origins[2 * id + 1], res, 1, 1.0f / res};
+    P.grid[1] = P.grid[0];
+    P.stages = 1;
+    P.n = n;
+    P.pts = pts + (size_t)b * n * 2;
+    P.valid = valid + (size_t)b * n;
+    P.init = init + 3 * b;
+    P.y0 = y0;
+    P.iterations = iterations;
+    P.want_cov = true;
+    P.pose_out = pose + 3 * b;
+    P.cov_out = cov + 9 * b;
+    P.probs_out = probs + (size_t)b * n;
+    P.iters_out = iters + 2 * b;
+    HostExec ex;
+    rpx::refine_block(ex, P, sh, rows.data());
+  }
+  return 0;
+}
+
 // The header's pieces, for the tests: sinf (which = 0) or cosf (1) of
 // each of x[0..count)
 extern "C" void rpx_sincosf(const float* x, int count, int which,

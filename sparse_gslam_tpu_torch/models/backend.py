@@ -35,9 +35,13 @@ the device pin batches (ops/matching.pin_eval_batch; _kf_edges_device).
 It runs on whichever device the backend was built with. Unlike the JAX
 package it leaves the frontend where it is (frontend_on_host is not
 carried over). Off (the default) is the CPU branch on every device.
-Not ported (ROADMAP.md): the sharded (multi-device) pose-graph solver
-and the ground-truth diagnostics; no configuration selects them on
-this path.
+Two attributes, set in code as the JAX package's are (its runner has no
+flag for them), take the multi-device routes: `mesh`
+(parallel/multihost.BlockMesh) sends every pose-graph solve through the
+sharded solver (parallel/dist_solver.optimize_pose_graph_sharded), and
+`match_mesh` the candidate search through
+ops/matching.match_candidates_sharded. Not ported (ROADMAP.md): the
+ground-truth diagnostics; no configuration selects them on this path.
 """
 from __future__ import annotations
 
@@ -191,6 +195,14 @@ class SubmapLoopCloser:
             "bound": 0, "accepted": 0,
         }
         self._kf_edge_done = 1  # next keyframe to consider for kf edges
+        # optional parallel/multihost.BlockMesh: when set, every
+        # pose-graph solve runs the sharded solver
+        # (parallel/dist_solver.optimize_pose_graph_sharded)
+        self.mesh = None
+        # optional BlockMesh: when set, the candidate search fans out
+        # over it (ops/matching.match_candidates_sharded, the multi-device
+        # counterpart of the reference's ctpl pool)
+        self.match_mesh = None
 
     # -- stats -----------------------------------------------------------
     @property
@@ -479,9 +491,15 @@ class SubmapLoopCloser:
                 query, spec, float(min_score), stride,
             )
 
-        _t = _time.perf_counter()
-        ci, score, pose, cov = run(self.loop_closure_min_score)
-        self.prof["match_correlate"] += _time.perf_counter() - _t
+        if self.match_mesh is not None:
+            ci, score, pose, cov = matching.match_candidates_sharded(
+                [c[0].score_grid for c in candidates], origins,
+                [c[1] for c in candidates], query, spec, self.match_mesh,
+                float(self.loop_closure_min_score))
+        else:
+            _t = _time.perf_counter()
+            ci, score, pose, cov = run(self.loop_closure_min_score)
+            self.prof["match_correlate"] += _time.perf_counter() - _t
         self.match_calls += len(candidates)
         if os.environ.get("SLAM_LOG_MATCHES"):
             # match-score progress lines like the reference's stdout
@@ -1471,10 +1489,12 @@ class SubmapLoopCloser:
         submap_loop_closer.cpp:286-288) to the dense or the
         keyframe-partitioned Schur solver per config.pg_solver:
         "blocked", or "auto" from dist_solver_min_poses padded poses
-        up, takes parallel/dist_solver in blocks of dist_block_size."""
+        up, takes parallel/dist_solver in blocks of dist_block_size. A
+        mesh set on the closer always takes the sharded solver, in
+        max(mesh size, N / dist_block_size) blocks."""
         cfg = self.config
         N = g.poses.shape[0]
-        blocked = cfg.pg_solver == "blocked" or (
+        blocked = self.mesh is not None or cfg.pg_solver == "blocked" or (
             cfg.pg_solver == "auto" and N >= cfg.dist_solver_min_poses
         )
         if not blocked:
@@ -1484,11 +1504,20 @@ class SubmapLoopCloser:
         # N is a power of two, and so is dist_block_size: the blocks
         # tile the padded graph
         n_blocks = max(1, N // max(1, cfg.dist_block_size))
+        if self.mesh is not None:
+            # N and the mesh size are powers of two: n_blocks divides N
+            # and is a multiple of the mesh size
+            n_blocks = max(self.mesh.size, n_blocks)
         plan = dist_solver.partition_of(g, n_blocks)
         bg, sg = dist_solver.split_graph(g, plan)
-        poses = dist_solver.optimize_pose_graph_blocked(
-            bg, sg, cfg.dcs_phi, iterations, gnc_scale
-        )
+        if self.mesh is not None:
+            poses = dist_solver.optimize_pose_graph_sharded(
+                bg, sg, cfg.dcs_phi, self.mesh, iterations, gnc_scale
+            )
+        else:
+            poses = dist_solver.optimize_pose_graph_blocked(
+                bg, sg, cfg.dcs_phi, iterations, gnc_scale
+            )
         return g._replace(poses=poses.reshape(g.poses.shape))
 
     # --------------------------------------------------------------------

@@ -281,6 +281,86 @@ def correlate_rotations(
     return corr / n_valid
 
 
+def correlate_all(
+    score_grid,  # (size, size) dilated score grid (PMIN where unknown)
+    grid_origin,  # (2,)
+    points,  # (N, 2) query points in submap frame
+    point_valid,  # (N,) bool
+    init_theta,  # () initial rotation estimate, float32
+    angular_step,  # (), float32
+    resolution: float,
+    n_angular: int,
+    n_linear: int,
+    size: int,
+    fft_size: int,
+):
+    """Score every (rotation, ox, oy) candidate: the exhaustive FFT
+    correlator over the 2 n_angular + 1 rotations init_theta + k step
+    (one FMA each, as XLA forms them). Returns scores (R, 2 n_linear + 1,
+    2 n_linear + 1), the mean over valid points of the grid value at the
+    point's cell shifted by (ox, oy) cells, and the thetas (R,)."""
+    dev = score_grid.device
+    f32 = torch.float32
+    R = 2 * n_angular + 1
+    ks = (torch.arange(R, device=dev) - n_angular).to(f32)
+    thetas = _fma_f32(ks, torch.as_tensor(angular_step, dtype=f32,
+                                          device=dev).expand(R),
+                      torch.as_tensor(init_theta, dtype=f32,
+                                      device=dev).expand(R))
+    scores = correlate_rotations(score_grid, grid_origin, points,
+                                 point_valid, thetas, resolution, n_linear,
+                                 size, fft_size)
+    return scores, thetas
+
+
+def best_candidate_with_cov(scores, thetas, init_theta, angular_step,
+                            resolution: float, n_linear: int):
+    """The centred argmax of a (R, W, W) score volume (among candidates
+    within SCORE_NOISE_BAND of the max, the one nearest the search
+    centre; the first in flat order among equals) and the score-moment
+    covariance over the +-5 cell / +-5 rotation window around it
+    (indices clamped to the volume, fast_correlative_scan_matcher_2d.cc:
+    522-560), in float32 on the scores' device. Returns (best score,
+    pose (3,) [ox res, oy res, theta], cov (3, 3)). The moments are torch
+    sums, not the JAX program's order (match_candidates_sharded takes
+    the covariance from window_cov)."""
+    dev = scores.device
+    f32 = torch.float32
+    R, W = scores.shape[0], scores.shape[1]
+    m = scores.max()
+    d = torch.arange(W, device=dev) - n_linear
+    r2 = (d[:, None] ** 2 + d[None, :] ** 2).to(f32)
+    masked = torch.where(scores >= m - SCORE_NOISE_BAND, -r2[None],
+                         torch.tensor(-np.inf, dtype=f32, device=dev))
+    flat = int(torch.argmax(masked.reshape(-1)))
+    k, rem = divmod(flat, W * W)
+    ox, oy = rem // W - n_linear, rem % W - n_linear
+    best = scores.reshape(-1)[flat]
+    res = np.float32(resolution)
+    pose = torch.stack([
+        torch.tensor(np.float32(ox) * res, device=dev),
+        torch.tensor(np.float32(oy) * res, device=dev), thetas[k]])
+    w = 5
+    di = torch.arange(-w, w + 1, device=dev)
+    ki = torch.clamp(k + di, 0, R - 1)
+    xi = torch.clamp(ox + n_linear + di, 0, W - 1)
+    yi = torch.clamp(oy + n_linear + di, 0, W - 1)
+    sub = scores[ki[:, None, None], xi[None, :, None], yi[None, None, :]]
+    px = (xi - n_linear).to(f32) * res
+    py = (yi - n_linear).to(f32) * res
+    pt = thetas[ki] - torch.as_tensor(init_theta, dtype=f32, device=dev)
+    n = len(di)
+    X = torch.stack([px[None, :, None].expand(n, n, n),
+                     py[None, None, :].expand(n, n, n),
+                     pt[:, None, None].expand(n, n, n)], -1).reshape(-1, 3)
+    sflat = sub.reshape(-1)
+    inv_s = 1.0 / sflat.sum()
+    u = (X * sflat[:, None]).sum(0)
+    K = torch.einsum("ni,nj,n->ij", X, X, sflat)
+    cov = inv_s * K - inv_s * inv_s * torch.outer(u, u)
+    return best, pose, cov
+
+
 def _seq_sum_last(x):
     """Sum over the last dim in index order, in x's dtype."""
     acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
@@ -592,6 +672,84 @@ def match_candidates_pruned(
     return ci, sc, pose, cov
 
 
+def match_candidates_sharded(
+    score_grids,  # list of level-0 (2x2 dilated) score grids
+    origins,  # list of (2,) float32 tensors
+    init_thetas,
+    points,  # (N, 2) numpy query returns
+    spec: SearchSpec,
+    mesh,  # parallel/multihost.BlockMesh
+    min_score: float,
+    fft_margin_bucket: int = 64,
+):
+    """The candidate search fanned out over a mesh (the JAX package's
+    shard_map matcher, the multi-device counterpart of the reference's
+    ctpl pool, submap_loop_closer.cpp:158-171). The candidates, padded
+    to a multiple of mesh.size with the first one, split into contiguous
+    shards; each shard scores its own on its device with the exhaustive
+    FFT correlator (correlate_all), takes the centred argmax
+    (best_candidate_with_cov) and the window covariance (window_cov).
+    The tiny (score, pose, cov) results are gathered in shard order,
+    which is the candidates' order, and the first maximum wins; the
+    grids stay on their shard's device. Same contract as
+    match_candidates_pruned: (best_idx or None, score, pose (3,),
+    cov (3, 3)), host values; below min_score (None, score, None, None).
+    """
+    C = len(score_grids)
+    n = mesh.size
+    Cp = -(-C // n) * n
+    Cl = Cp // n
+    size = score_grids[0].shape[0]
+    N = len(points)
+    n_bucket = 256
+    while n_bucket < N:
+        n_bucket *= 2
+    pts_np = np.zeros((n_bucket, 2), np.float32)
+    pts_np[:N] = points
+    valid_np = np.arange(n_bucket) < N
+    fft_size = size + fft_margin_bucket
+    f32 = np.float32
+    step = f32(spec.angular_step)
+    span = f32(spec.n_angular * spec.angular_step)
+    th_all = [f32(t) for t in init_thetas] + [f32(0.0)] * (Cp - C)
+    s_parts, p_parts, c_parts = [], [], []
+    for q, dev in enumerate(mesh.devices):
+        pts = torch.from_numpy(pts_np).to(dev)
+        valid = torch.from_numpy(valid_np).to(dev)
+        scs, poses, covs = [], [], []
+        for ci in range((mesh.first + q) * Cl, (mesh.first + q + 1) * Cl):
+            live = ci < C
+            grid = score_grids[ci if live else 0].to(dev)
+            origin = origins[ci if live else 0].to(dev, torch.float32)
+            th0 = th_all[ci]
+            scores, thetas = correlate_all(
+                grid, origin, pts, valid, th0, step,
+                float(spec.resolution), int(spec.n_angular),
+                int(spec.n_linear), int(size), int(fft_size))
+            sc, pose, _ = best_candidate_with_cov(
+                scores, thetas, th0, step, float(spec.resolution),
+                int(spec.n_linear))
+            cov = window_cov(grid, origin, pts, valid, pose, th0, step,
+                             f32(th0 - span), f32(th0 + span),
+                             float(spec.resolution), int(size))
+            scs.append(sc if live else torch.full((), -np.inf,
+                                                  dtype=torch.float32,
+                                                  device=dev))
+            poses.append(pose)
+            covs.append(cov.to(dev))
+        s_parts.append(torch.stack(scs))
+        p_parts.append(torch.stack(poses))
+        c_parts.append(torch.stack(covs))
+    s_all = mesh.gather(s_parts).cpu().numpy()
+    p_all = mesh.gather(p_parts).cpu().numpy()
+    c_all = mesh.gather(c_parts).cpu().numpy()
+    k = int(np.argmax(s_all))
+    sc = float(s_all[k])
+    if sc < min_score:
+        return None, sc, None, None
+    return k, sc, p_all[k].astype(np.float64), c_all[k].astype(np.float64)
+
+
 # ---------------------------------------------------------------------------
 # local refinement (Ceres scan matcher replacement)
 # ---------------------------------------------------------------------------
@@ -699,6 +857,46 @@ def refine_pose_cov_two_stage(
                     (fine_grid, fine_origin, fine_res)],
                    points, point_valid, init_pose, iterations,
                    want_cov=True)
+
+
+def refine_pins_plain(grids, origins, ids, resolution, points, point_valid,
+                      init_pose, iterations: int = 10):
+    """The batched refinement's plain version (refine_exact.refine with
+    vmapped=True, pin by pin on the host) for tensors on any device,
+    back on the points' device: pin b refined against grids[ids[b]]
+    with its Censi covariance, as the JAX package's pin_eval_batch
+    refines its batch under jax.vmap. Returns pose (B, 3), cov
+    (B, 3, 3), probs (B, N)."""
+    dev = points.device
+    ids_np = _host(ids, np.int64)
+    pts, val = _host(points), _host(point_valid, bool)
+    init = _host(init_pose)
+    out = [refine_exact.refine(
+        [(_host(grids[int(i)]), _host(origins[int(i)]),
+          np.float32(resolution))], pts[b], val[b], init[b],
+        iterations=iterations, want_cov=True, cos_sin=_cos_sin,
+        vmapped=True) for b, i in enumerate(ids_np)]
+    return tuple(torch.from_numpy(np.stack(x)).to(dev) for x in zip(*out))
+
+
+def refine_pins(grids, origins, ids, resolution, points, point_valid,
+                init_pose, iterations: int = 10):
+    """A batch of pins refined at once (pin_eval_batch): the kernel's
+    batched mode for tensors on the card (one launch), the plain version
+    for tensors on the CPU. grids (M, G, G), origins (M, 2), ids (B,),
+    points (B, N, 2), point_valid (B, N), init_pose (B, 3). Returns pose
+    (B, 3), cov (B, 3, 3), probs (B, N)."""
+    if points.device.type == "cuda":
+        from .refine_cuda import refine_pins_cuda
+
+        pose, cov, probs, _ = refine_pins_cuda(
+            grids.contiguous(), origins.contiguous(),
+            ids.to(torch.int32).contiguous(), resolution,
+            points.contiguous(), point_valid.contiguous(),
+            init_pose.contiguous(), iterations)
+        return pose, cov, probs
+    return refine_pins_plain(grids, origins, ids, resolution, points,
+                             point_valid, init_pose, iterations)
 
 
 # ---------------------------------------------------------------------------
@@ -1450,11 +1648,12 @@ def pin_eval_batch(
     pin_eval_batch: the exhaustive window scores of every (pin,
     rotation) plane (_corr_planes_hist on the cached spectra), the
     centred argmax, the band-weighted volume covariance (_volume_cov),
-    the high-res refinement with its Censi covariance (refine_pose_cov:
-    the CUDA kernel on the card, one launch per live pin) and the
-    occupancy overlap. Returns (B, 26) float64 rows [score, pose0 (3),
-    wcov (9), refined (3), censi (9), overlap], zero for pins not
-    live."""
+    the high-res refinement of the live pins with its Censi covariance
+    (refine_pins, in the arithmetic of the JAX program's vmapped
+    refinement: the kernel's batched mode on the card, one launch per
+    batch) and the occupancy overlap. Returns (B, 26) float64 rows
+    [score, pose0 (3), wcov (9), refined (3), censi (9), overlap], zero
+    for pins not live."""
     dev = pts.device
     f32 = torch.float32
     B, R = thetas.shape
@@ -1492,16 +1691,18 @@ def pin_eval_batch(
         thetas.gather(1, k[:, None])[:, 0],
     ], dim=1)
     out = torch.zeros((B, 26), dtype=torch.float64, device=dev)
-    for b in np.nonzero(live.cpu().numpy())[0].tolist():
+    lv = torch.from_numpy(np.nonzero(live.cpu().numpy())[0]).to(dev)
+    if not len(lv):
+        return out
+    refined, censi, probs = refine_pins(
+        high_stack, high_origins, ids[lv], high_res, pts[lv], valid[lv],
+        pose0[lv], iterations=iterations)
+    for q, b in enumerate(lv.tolist()):
         wcov = _volume_cov(scores[b], thetas[b], seeds[b, 2], resolution,
                            n_linear)
-        i = ids[b]
-        refined, censi, probs = refine_pose_cov(
-            high_stack[i], high_origins[i], high_res, pts[b], valid[b],
-            pose0[b], iterations=iterations)
-        overlap = ((probs > 0.55) & valid[b]).sum().to(f32) / n_valid[b]
+        overlap = ((probs[q] > 0.55) & valid[b]).sum().to(f32) / n_valid[b]
         out[b] = torch.cat([
-            best[b, None], pose0[b], wcov.reshape(-1), refined,
-            censi.reshape(-1), overlap[None],
+            best[b, None], pose0[b], wcov.reshape(-1), refined[q],
+            censi[q].reshape(-1), overlap[None],
         ]).to(torch.float64)
     return out

@@ -15,6 +15,13 @@ The kernel ends a stage at the first GN step that every later step
 would repeat; the plain version runs them all, with the same bits.
 The same block program runs on the host through csrc/refine_pose_host.cpp
 (g++, `host_library`), for the CPU tests and the card's checks.
+
+`refine_pins_cuda` is the kernel's batched mode for the device pin
+batches (matching.pin_eval_batch): one launch per batch, one block per
+pin against its own grid of a stack, in the arithmetic of the JAX
+program that refines them under jax.vmap (refine_exact.refine(...,
+vmapped=True) is its plain version). `refine_pins_cuda.launches` counts
+its launches.
 """
 from __future__ import annotations
 
@@ -62,6 +69,9 @@ def host_library():
     lib.refine_pose_host.argtypes = [p, i, p, f, p, i, p, f, i, p, p, p, p,
                                      i, i, i, i, p, p, p, p]
     lib.refine_pose_host.restype = ctypes.c_int
+    lib.refine_pins_host.argtypes = [p, i, p, p, f, p, p, p, p, i, i, i,
+                                     p, p, p, p]
+    lib.refine_pins_host.restype = ctypes.c_int
     for name in ("rpx_sgetrf3", "rpx_strsm3", "rpx_ssyevd3"):
         getattr(lib, name).restype = None
     lib.rpx_libm_mismatches.argtypes = [ctypes.c_uint32] * 3 + [p, p]
@@ -75,14 +85,20 @@ def load() -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
+def _cdll():
     lib = ctypes.CDLL(build()["path"])
-    fn = lib.refine_pose_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, i, p, f, p, i, p, f, i, p, p, p, p, i, i, i, i,
-                   p, p, p, p, p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.refine_pose_launch.argtypes = [p, i, p, f, p, i, p, f, i, p, p, p,
+                                       p, i, i, i, i, p, p, p, p, p]
+    lib.refine_pose_launch.restype = ctypes.c_int
+    lib.refine_pins_launch.argtypes = [p, i, p, p, f, p, p, p, p, i, i, i,
+                                       p, p, p, p, p]
+    lib.refine_pins_launch.restype = ctypes.c_int
+    return lib
+
+
+def _library():
+    return _cdll().refine_pose_launch
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,4 +158,46 @@ def refine_cuda(stages, points, point_valid, init_pose,
     return pose, cov, probs, steps
 
 
-grid_cuda.reset_launches(refine_cuda)
+def refine_pins_cuda(grids, origins, ids, resolution, points, point_valid,
+                     init_pose, iterations: int = 10):
+    """Refine B pins in one launch of B blocks, block b against grid
+    ids[b] of the stack, with the Censi covariance, as the JAX package's
+    pin_eval_batch refines its batch under jax.vmap. grids (M, G, G) f32,
+    origins (M, 2) f32, ids (B,) int32, points (B, N, 2) f32,
+    point_valid (B, N) bool, init_pose (B, 3) f32, all CUDA tensors, N
+    in POINTS. Returns pose (B, 3), cov (B, 3, 3), probs (B, N) and
+    steps (B, 2) int32 (the GN steps the stage ran, then 0)."""
+    dev = points.device
+    B, N, _ = points.shape
+    if N not in POINTS:
+        raise ValueError(f"N={N} padded points: the kernel takes {POINTS}")
+    if dev.type != "cuda":
+        raise ValueError(f"refine_pins_cuda needs CUDA tensors, got {dev}")
+    f32 = torch.float32
+    M, G = grids.shape[0], grids.shape[1]
+    grid_cuda._check("grids", grids, f32, (M, G, G), dev)
+    grid_cuda._check("origins", origins, f32, (M, 2), dev)
+    grid_cuda._check("ids", ids, torch.int32, (B,), dev)
+    grid_cuda._check("points", points, f32, (B, N, 2), dev)
+    grid_cuda._check("point_valid", point_valid, torch.bool, (B, N), dev)
+    grid_cuda._check("init_pose", init_pose, f32, (B, 3), dev)
+    pose = torch.empty((B, 3), dtype=f32, device=dev)
+    cov = torch.empty((B, 3, 3), dtype=f32, device=dev)
+    probs = torch.empty((B, N), dtype=f32, device=dev)
+    steps = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _cdll().refine_pins_launch(
+            grids.data_ptr(), G, origins.data_ptr(), ids.data_ptr(),
+            ctypes.c_float(resolution), points.data_ptr(),
+            point_valid.view(torch.uint8).data_ptr(), init_pose.data_ptr(),
+            _y0(dev).data_ptr(), B, N, iterations, pose.data_ptr(),
+            cov.data_ptr(), probs.data_ptr(), steps.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"refine_pins kernel launch failed: CUDA error "
+                           f"{rc}")
+    grid_cuda.count_launch(refine_pins_cuda)
+    return pose, cov, probs, steps
+
+
+grid_cuda.reset_launches(refine_cuda, refine_pins_cuda)

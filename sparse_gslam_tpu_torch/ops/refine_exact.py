@@ -31,6 +31,17 @@ JAX package by tests/test_torch_refine_exact.py:
   transcribed here as scalar float32 code with the FMAs and orders of
   those kernels (its Fortran LAPACK is compiled without FMA).
 
+The device pin batches (matching.pin_eval_batch) refine their pins under
+jax.vmap with the resolution a static constant, and XLA compiles that
+program otherwise (`refine(..., vmapped=True)`, read from the dumped program
+of pin_eval_batch at B = 8, N = 512, G = 576): the division by the
+resolution becomes a multiply by its float32 reciprocal `inv`, fused
+into the weights' offset (t0 = fma(d, inv, -0.5)); the taps' float ->
+int32 saturates (NaN to 0); and the Jacobian's tangents carry the
+reciprocal into the weights' derivatives (`_dweights_vmapped`). The
+dots, reductions, LAPACK calls and the residuals are the unbatched
+program's.
+
 csrc/refine_pose_exact.cuh holds the same arithmetic for the CUDA
 kernel (ops/refine_cuda.py) and its host build. Everything here runs on
 the host in numpy, whatever the device of the caller's tensors.
@@ -109,8 +120,9 @@ def occupied_weight(n: int) -> np.float32:
     return F32(y2 * F32(20))
 
 
-def _weights(u):
-    t0 = u + F32(-0.5)
+def _weights(t0):
+    """Catmull-Rom weights of the fractional offset t of t0 = u - 0.5,
+    with floor(t0), t and t^2."""
     fl = np.floor(t0)
     t = t0 - fl
     t2 = t * t
@@ -136,38 +148,56 @@ def _dweights(dt, t, t2):
     ], -1)
 
 
-def _taps(fl, size):
-    # float -> int32 as cvttss2si (out of range -> INT_MIN), then clamp
-    f = np.where(np.abs(fl) < 2.0**31, fl, -2.0**31).astype(np.int64)
+def _taps(fl, size, saturate=False):
+    """The four clamped taps from each floor: float -> int32 as
+    cvttss2si (out of range -> INT_MIN), or with `saturate` as the
+    vmapped program converts (clamped to int32, NaN -> 0)."""
+    if saturate:
+        f = np.where(np.isnan(fl), 0, np.clip(fl, -2.0**31, 2.0**31 - 1))
+    else:
+        f = np.where(np.abs(fl) < 2.0**31, fl, -2.0**31)
+    f = f.astype(np.int64)
     return np.clip(f[:, None] + np.arange(-1, 3)[None, :], 0, size - 1)
 
 
-def _moved(origin, res, pts, pose, c, s):
-    """The points moved by the pose (cos c, sin s of its angle), in grid
-    cells."""
+def _offsets(origin, pts, pose, c, s):
+    """The points moved by the pose (cos c, sin s of its angle), less
+    the origin (metres)."""
     x, y = pts[:, 0], pts[:, 1]
-    u = ((fma32(c, x, -(s * y)) + pose[0]) - origin[0]) / res
-    v = ((fma32(s, x, c * y) + pose[1]) - origin[1]) / res
-    return u, v
+    return (((fma32(c, x, -(s * y)) + pose[0]) - origin[0]),
+            ((fma32(s, x, c * y) + pose[1]) - origin[1]))
 
 
-def tap_cells(size, origin, res, pts, pose, c, s):
+def _axis_weights(d, res, inv):
+    """_weights of t0 = d / res - 0.5, or with `inv` the vmapped
+    program's t0 = fma(d, inv, -0.5)."""
+    if inv is None:
+        return _weights(d / res + F32(-0.5))
+    return _weights(fma32(d, inv, F32(-0.5)))
+
+
+def tap_cells(size, origin, res, pts, pose, c, s, inv=None):
     """Flat indices (N, 16) of the cells of a (size, size) grid that
     evaluate's bicubic taps read at this pose."""
-    u, v = _moved(origin, res, pts, pose, c, s)
-    iu, iv = _taps(_weights(u)[1], size), _taps(_weights(v)[1], size)
+    du, dv = _offsets(origin, pts, pose, c, s)
+    sat = inv is not None
+    iu = _taps(_axis_weights(du, res, inv)[1], size, sat)
+    iv = _taps(_axis_weights(dv, res, inv)[1], size, sat)
     return (iu[:, :, None] * size + iv[:, None, :]).reshape(len(pts), 16)
 
 
-def evaluate(grid, origin, res, pts, pose, c, s, jac: bool):
+def evaluate(grid, origin, res, pts, pose, c, s, jac: bool, inv=None):
     """Interpolated values p (N,) of the PMIN-filled grid at the points
     moved by the pose (cos c, sin s of its angle), and with `jac` their
-    derivatives (N, 3) along (x, y, theta)."""
+    derivatives (N, 3) along (x, y, theta). With `inv` (the float32
+    reciprocal of res), as the vmapped program computes them."""
     x, y = pts[:, 0], pts[:, 1]
-    u, v = _moved(origin, res, pts, pose, c, s)
-    wu, flu, tu, tu2 = _weights(u)
-    wv, flv, tv, tv2 = _weights(v)
-    iu, iv = _taps(flu, grid.shape[0]), _taps(flv, grid.shape[0])
+    du0, dv0 = _offsets(origin, pts, pose, c, s)
+    wu, flu, tu, tu2 = _axis_weights(du0, res, inv)
+    wv, flv, tv, tv2 = _axis_weights(dv0, res, inv)
+    sat = inv is not None
+    iu, iv = (_taps(flu, grid.shape[0], sat),
+              _taps(flv, grid.shape[0], sat))
     vals = grid[iu[:, :, None], iv[:, None, :]]  # (N, 4 u taps, 4 v taps)
     t = wu[:, 0, None] * vals[:, 0, :]
     for a in range(1, 4):
@@ -179,12 +209,16 @@ def evaluate(grid, origin, res, pts, pose, c, s, jac: bool):
         return p, None
     # the three tangents (x, y, theta) at once, leading axis k
     n = len(x)
-    one = np.full(n, F32(1) / res)
-    zero = np.zeros(n, F32)
-    du = np.stack([one, zero, (fma32(-s, x, -(c * y)) + F32(0)) / res])
-    dv = np.stack([zero, one, (fma32(c, x, -(s * y)) + F32(0)) / res])
-    dwu = _dweights(du, tu, tu2)  # (3, N, 4)
-    dwv = _dweights(dv, tv, tv2)
+    if inv is None:
+        one = np.full(n, F32(1) / res)
+        zero = np.zeros(n, F32)
+        du = np.stack([one, zero, (fma32(-s, x, -(c * y)) + F32(0)) / res])
+        dv = np.stack([zero, one, (fma32(c, x, -(s * y)) + F32(0)) / res])
+        dwu = _dweights(du, tu, tu2)  # (3, N, 4)
+        dwv = _dweights(dv, tv, tv2)
+    else:
+        dwu = _dweights_vmapped(_tangents(x, y, c, s, 0), tu, tu2, inv)
+        dwv = _dweights_vmapped(_tangents(x, y, c, s, 1), tv, tv2, inv)
     d11 = dwu[..., 0, None] * vals[None, :, 0, :]
     for a in range(1, 4):
         d11 = fma32(dwu[..., a, None], vals[None, :, a, :], d11)
@@ -194,6 +228,42 @@ def evaluate(grid, origin, res, pts, pose, c, s, jac: bool):
         d10 = fma32(dwv[..., b], t[None, :, b], d10)
         d45 = fma32(d11[..., b], wv[None, :, b], d45)
     return p, ((d10 + F32(0)) + (d45 + F32(0))).T
+
+
+def _tangents(x, y, c, s, axis):
+    """The vmapped program's tangent numerators (3, N) of the moved
+    point's u (axis 0) or v (1) along the pose's (x, y, theta): per
+    tangent k, the theta part dth = [0, 0, 1][k] as one FMA of two
+    products (the one its object code fuses), plus the translation
+    part."""
+    out = []
+    for k in range(3):
+        dth = F32(1 if k == 2 else 0)
+        if axis == 0:  # x * (dth * -s) - y * (c * dth)
+            m = fma32(x, dth * -s, -(y * (c * dth)))
+        else:  # y * (dth * -s) + x * (c * dth)
+            m = fma32(y, dth * -s, x * (c * dth))
+        out.append(F32(1 if k == axis else 0) + m)
+    return np.stack(out)
+
+
+def _dweights_vmapped(num, t, t2, inv):
+    """The weights' tangents as the vmapped program computes them from
+    the tangent numerators num (3, N) and the reciprocal inv: dt = num *
+    inv, reassociated onto t (d2 = 2 num (t inv)) and onto the constants
+    (0.5 dt = num (0.5 inv))."""
+    ti = t * inv
+    t2i = t2 * inv
+    half = F32(0.5) * inv
+    m = num * ti
+    d2 = m + m
+    d3 = fma32(num, t2i, t * d2)
+    return np.stack([
+        fma32(-num, half, fma32(-d3, F32(0.5), d2)),
+        fma32(d3, F32(1.5), -(d2 * F32(2.5))),
+        fma32(num, half, fma32(d2, F32(2), -(d3 * F32(1.5)))),
+        fma32(d3, F32(0.5), -(d2 * F32(0.5))),
+    ], -1)
 
 
 _IU = np.array([0, 0, 0, 1, 1, 2])
@@ -740,14 +810,16 @@ def _residuals(p, pose, anchor, w_occ, wv):
 
 
 def refine(grids, points, valid, init, iterations: int = 10,
-           want_cov: bool = True, cos_sin=None):
+           want_cov: bool = True, cos_sin=None, vmapped: bool = False):
     """One refinement, one stage per entry of `grids` ((grid, origin,
     resolution) each, float32 numpy; the last stage starts from the
     previous one's pose). points (N, 2) float32, valid (N,) bool, init
     (3,) float32. Returns (pose (3,), cov (3, 3), probs (N,)): the last
     stage's pose and Censi covariance, the first stage's per-point
     probabilities (cov and probs None without want_cov). `cos_sin(theta)`
-    gives glibc's float32 cos and sin."""
+    gives glibc's float32 cos and sin. With `vmapped`, as the device pin
+    batches' program (jax.vmap, the resolution a static constant)
+    computes it."""
     pts = np.asarray(points, F32)
     valid = np.asarray(valid, bool)
     if len(pts) > MAX_POINTS:
@@ -765,15 +837,16 @@ def refine(grids, points, valid, init, iterations: int = 10,
         sg = np.where(grid > 0, grid, PMIN).astype(F32)
         origin = np.asarray(origin, F32)
         res = F32(res)
+        inv = F32(1) / res if vmapped else None
         anchor = pose.copy()
         for _ in range(iterations):
             c, s = cos_sin(pose[2])
-            p, Jo = evaluate(sg, origin, res, pts, pose, c, s, True)
+            p, Jo = evaluate(sg, origin, res, pts, pose, c, s, True, inv)
             r = _residuals(p, pose, anchor, w_occ, wv)
             J = np.concatenate([(-Jo * w_occ) * wv[:, None], anchor_rows])
             trial = gn_solve(_gram(J), _gemv(J, r), pose)
             c, s = cos_sin(trial[2])
-            p2, _ = evaluate(sg, origin, res, pts, trial, c, s, False)
+            p2, _ = evaluate(sg, origin, res, pts, trial, c, s, False, inv)
             if (_sum_sq(_residuals(p2, trial, anchor, w_occ, wv))
                     <= _sum_sq(r)):
                 pose = trial
@@ -781,7 +854,7 @@ def refine(grids, points, valid, init, iterations: int = 10,
             continue
         last = stage == len(grids) - 1
         c, s = cos_sin(pose[2])
-        p, Jo = evaluate(sg, origin, res, pts, pose, c, s, last)
+        p, Jo = evaluate(sg, origin, res, pts, pose, c, s, last, inv)
         if stage == 0:
             probs = p
         if last:

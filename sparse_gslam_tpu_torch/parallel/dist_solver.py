@@ -30,7 +30,9 @@ the JAX package:
   - the interior solve is cyclic reduction where the JAX package runs
     the sequential LDL sweep (`tridiag_solve`); both solve the same
     equilibrated SPD system.
-The multi-device driver (optimize_pose_graph_sharded) is not ported.
+The multi-device solver (optimize_pose_graph_sharded) shards the blocks
+over a parallel/multihost.BlockMesh: shards loop over the process's
+devices, and a torch.distributed group joins processes.
 """
 from __future__ import annotations
 
@@ -204,14 +206,16 @@ def _mmT(a, b):
 
 
 def _block_system(bg: BlockedGraph, poses, prev_last_pose, K: int,
-                  b_ext=None):
+                  b_ext=None, block_ids=None):
     """Assemble every block's partitioned-system pieces in LOCAL
     separator indexing (K = local capacity; the driver scatters the
     local pieces into the global separator system via loc_sep).
 
     poses (P, M, 3); prev_last_pose (P, 3): the last pose of the
     previous block (zeros for block 0). b_ext (P, M, 3): an externally
-    supplied gradient (refinement mode).
+    supplied gradient (refinement mode). block_ids (P,): the blocks'
+    global indices (default 0 .. P-1; a shard of the sharded solver
+    passes its own).
 
     Returns (Db (P,M,3,3) and Ob (P,M,3,3): the block-tridiagonal
     interior matrix, Ob[:, m] at (m-1, m); b_i (P, 3M); His (P, 3K,
@@ -224,7 +228,9 @@ def _block_system(bg: BlockedGraph, poses, prev_last_pose, K: int,
 
     free = bg.valid & (~bg.fixed)
     interior = free & (bg.sep_local < 0)
-    not_first = (torch.arange(P, device=dev) > 0)[:, None]
+    if block_ids is None:
+        block_ids = torch.arange(P, device=dev)
+    not_first = (block_ids > 0)[:, None]
 
     # endpoint A of edge m: m=0 -> previous block's boundary (always
     # LOCAL separator id 0 by construction), m>0 -> local pose m-1
@@ -339,7 +345,7 @@ def _closure_system(sep_poses, sg: SepGraph, phi, S):
 
 
 def _block_gn_pieces(bg: BlockedGraph, poses, prev_last_pose, K,
-                     b_ext=None):
+                     b_ext=None, block_ids=None):
     """Local factorization + Schur pieces for every block.
 
     Returns (S_contrib (P,3K,3K), rhs_contrib (P,3K), Hss_part, bs_part,
@@ -347,7 +353,7 @@ def _block_gn_pieces(bg: BlockedGraph, poses, prev_last_pose, K,
     back-substitution. The interior solve is block-tridiagonal cyclic
     reduction of the row-wise Jacobi-equilibrated system."""
     Db, Ob, b_i, His, Hss, b_s = _block_system(
-        bg, poses, prev_last_pose, K, b_ext)
+        bg, poses, prev_last_pose, K, b_ext, block_ids)
     P, M = Db.shape[0], Db.shape[1]
     rhs = torch.cat([b_i[..., None], His.transpose(-1, -2)], dim=-1)
     R = rhs.shape[-1]
@@ -389,6 +395,26 @@ def _gather_local(d_s, loc_sep):
     out = dsr[loc_sep.clamp(min=0)]
     out = torch.where((loc_sep >= 0)[..., None], out, 0.0)
     return out.reshape(loc_sep.shape[0], -1)
+
+
+def _locals_to_global(S, loc_sep, S_loc, b_loc):
+    """The dense form of _locals_to_global_compact, as the sharded
+    solver uses it (a shard's blocks scatter into the whole separator
+    system, which the shards then sum): every (block, ki, kj) of the
+    (P, K, K) local-pair lattice scattered, padding (-1) into the
+    sentinel. loc_sep (P, K); S_loc (P, 3K, 3K); b_loc (P, 3K). Returns
+    the (3S, 3S) system and its (3S,) rhs."""
+    dt, dev = S_loc.dtype, S_loc.device
+    nb, K = loc_sep.shape
+    vals = S_loc.reshape(nb, K, 3, K, 3).permute(0, 1, 3, 2, 4).reshape(
+        -1, 3, 3)
+    buf = torch.zeros((S + 1, S + 1, 3, 3), dtype=dt, device=dev)
+    _scatter_blocks(buf, loc_sep[:, :, None].expand(nb, K, K).reshape(-1),
+                    loc_sep[:, None, :].expand(nb, K, K).reshape(-1), vals)
+    b = torch.zeros((S + 1, 3), dtype=dt, device=dev)
+    b.index_put_((torch.where(loc_sep >= 0, loc_sep, S).reshape(-1),),
+                 b_loc.reshape(nb * K, 3), accumulate=True)
+    return _blocks_to_dense(buf), b[:S].reshape(-1)
 
 
 def _locals_to_global_compact(buf, b_base, sg: SepGraph, S_loc, b_loc):
@@ -461,6 +487,92 @@ def optimize_pose_graph_blocked(
         poses = _apply_updates(poses, Y, _gather_local(d_s, bg.loc_sep),
                                bg.sep_local)
     return poses
+
+
+# ---------------------------------------------------------------------------
+# multi-device solver: the blocks sharded over a BlockMesh
+# ---------------------------------------------------------------------------
+
+
+def optimize_pose_graph_sharded(
+    bg: BlockedGraph, sg: SepGraph, phi, mesh, iterations: int = 20,
+    gnc_init_scale: float = 1.0,
+) -> torch.Tensor:
+    """Multi-device GN (the JAX package's shard_map solver): the P
+    blocks split into mesh.size contiguous shards of P / size blocks
+    (P must divide), shard q on its device (parallel/multihost.BlockMesh).
+    Each GN iteration, as the JAX program:
+
+      - the chain halo: each shard's first block takes the previous
+        shard's last pose (the JAX package's ppermute);
+      - the replicated separator poses: each shard's own, summed over
+        the shards (its psum);
+      - each shard's blocks' local Schur pieces scattered into the dense
+        (3S, 3S) separator system (_locals_to_global), summed over the
+        shards;
+      - the replicated closure system and equilibrated Cholesky solve on
+        the mesh's home device, then each shard's own update.
+
+    bg and sg are the whole graph on any device (every process passes
+    the same); each shard copies its blocks to its device. Returns the
+    (P, M, 3) poses on bg's device, on every rank. A failed collective
+    raises; there is no single-device fallback."""
+    P = bg.poses.shape[0]
+    S = sg.sep_valid.shape[0]
+    K = bg.loc_sep.shape[1]
+    n = mesh.size
+    if P % n:
+        raise ValueError(f"{P} blocks do not divide over {n} shards")
+    Pl = P // n
+    dt = bg.poses.dtype
+    home = mesh.home
+    phis = gnc_phi_schedule(phi, iterations, gnc_init_scale, dtype=dt,
+                            device=home)
+    sg_home = SepGraph(*(t.to(home) for t in sg))
+    shards = []
+    for q, dev in enumerate(mesh.devices):
+        lo = (mesh.first + q) * Pl
+        shards.append((
+            dev, BlockedGraph(*(t[lo:lo + Pl].to(dev) for t in bg)),
+            torch.arange(lo, lo + Pl, device=dev),
+            SepGraph(*(t.to(dev) for t in sg))))
+    poses = [b.poses for _, b, _, _ in shards]
+    eye = torch.eye(3 * S, dtype=dt, device=home)
+    sep_free = sg_home.sep_valid.repeat_interleave(3)
+    ridge = _ones_where(sep_free, 1e-12, dt) * eye
+    for k in range(iterations):
+        halo = mesh.from_previous_rank(poses[-1][-1, -1].to(home))
+        sep_parts, S_parts, b_parts, Ys = [], [], [], []
+        for q, (dev, b, ids, sq) in enumerate(shards):
+            prev = halo.to(dev) if q == 0 else poses[q - 1][-1, -1].to(dev)
+            prev_last = torch.cat([prev[None], poses[q][:-1, -1, :]])
+            own = ((sq.sep_pose_block // Pl == ids[0] // Pl)
+                   & sq.sep_valid)
+            sep_parts.append(torch.where(
+                own[:, None],
+                poses[q][sq.sep_pose_block % Pl, sq.sep_pose_off], 0.0))
+            Sc, rc, Hss, bs, Y = _block_gn_pieces(
+                b._replace(poses=poses[q]), poses[q], prev_last, K,
+                block_ids=ids)
+            S_part, b_part = _locals_to_global(S, b.loc_sep, Hss - Sc,
+                                               bs - rc)
+            S_parts.append(S_part)
+            b_parts.append(b_part)
+            Ys.append(Y)
+        sep_poses = mesh.psum(sep_parts)
+        Hss_tot = mesh.psum(S_parts)
+        bs_tot = mesh.psum(b_parts)
+        buf_c, bs_c = _closure_system(sep_poses, sg_home, phis[k], S)
+        S_dense = (_blocks_to_dense(buf_c) + Hss_tot) + ridge
+        S_dense = torch.where(sep_free[:, None] & sep_free[None, :],
+                              S_dense, eye)
+        rhs_s = torch.where(sep_free, bs_c + bs_tot, 0.0)
+        d_s = _eq_chol_solve(S_dense, rhs_s)
+        for q, (dev, b, _, _) in enumerate(shards):
+            poses[q] = _apply_updates(
+                poses[q], Ys[q], _gather_local(d_s.to(dev), b.loc_sep),
+                b.sep_local)
+    return mesh.gather(poses).to(bg.poses.device)
 
 
 # ---------------------------------------------------------------------------
@@ -627,10 +739,10 @@ def partition_of(g: PoseGraphData, n_blocks: int) -> PartitionPlan:
 
 def optimize_partitioned(
     g: PoseGraphData, phi: float, n_blocks: int, iterations: int = 20,
-    refine_rounds: int = 0, gnc_init_scale: float = 1.0,
+    mesh=None, refine_rounds: int = 0, gnc_init_scale: float = 1.0,
 ) -> PoseGraphData:
-    """Partition + solve on g's device (the JAX package's mesh=None
-    path).
+    """Partition + solve: on g's device with mesh=None, else sharded
+    over the mesh (parallel/multihost.block_mesh).
 
     refine_rounds > 0 polishes the solution with mixed-precision
     iterative refinement (float64 gradient on the host, partitioned
@@ -638,8 +750,12 @@ def optimize_partitioned(
     gradient's zero, which matters for float32 graphs on long chains."""
     plan = partition_of(g, n_blocks)
     bg, sg = split_graph(g, plan)
-    poses = optimize_pose_graph_blocked(bg, sg, phi, iterations,
-                                        gnc_init_scale)
+    if mesh is None:
+        poses = optimize_pose_graph_blocked(bg, sg, phi, iterations,
+                                            gnc_init_scale)
+    else:
+        poses = optimize_pose_graph_sharded(bg, sg, phi, mesh, iterations,
+                                            gnc_init_scale)
     if refine_rounds > 0:
         poses64 = refine_f64(g, plan, bg, sg, phi, poses, refine_rounds)
         poses = torch.from_numpy(poses64).to(g.poses.device, g.poses.dtype)

@@ -323,3 +323,66 @@ def test_joint_solve_on_cuda_matches_cpu():
     np.testing.assert_allclose(out["cuda"][2], out["cpu"][2], rtol=1e-9)
     assert out["cpu"][2] < 0.1 * float(solvers.joint_graph_chi2(
         joint_graph_from_numpy(fields, "cpu"), 10.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [256, 512])
+def test_refine_pins_kernel_matches_batched_plain_on_cuda(n):
+    """The refinement kernel's batched mode (one launch for a batch of
+    pins, each against its own grid of a stack, in the arithmetic of the
+    JAX program's vmapped refinement) against its batched plain version
+    on the same CUDA tensors, torch.equal."""
+    need_card()
+    from sparse_gslam_tpu_torch.ops import refine_cuda
+
+    dev = torch.device("cuda")
+    grids, origins, pts = [], [], []
+    for k in range(3):
+        g, o, p, _ = refine_world(576, 0.05, n)
+        grids.append(np.roll(g, 2 * k, axis=0))
+        origins.append(o)
+        pts.append(p[:n])
+    ids = torch.tensor([2, 0, 1, 2], dtype=torch.int32, device=dev)
+    B = len(ids)
+    grids = torch.from_numpy(np.stack(grids)).to(dev)
+    origins = torch.from_numpy(np.stack(origins)).to(dev)
+    q = torch.from_numpy(np.stack([pts[i] for i in ids.tolist()])).to(dev)
+    valid = (torch.arange(n, device=dev)[None] < torch.tensor(
+        [[n - 20], [n // 2], [n - 1], [100]], device=dev)).contiguous()
+    init = torch.tensor([[0.33, 0.36, 0.21]] * B, dtype=torch.float32,
+                        device=dev)
+    init[:, 2] += torch.arange(B, device=dev) * 0.01
+    before = refine_cuda.refine_pins_cuda.launches
+    got = matching.refine_pins(grids, origins, ids, 0.05, q, valid, init)
+    assert refine_cuda.refine_pins_cuda.launches == before + 1
+    ref = matching.refine_pins_plain(grids, origins, ids, 0.05, q, valid,
+                                     init)
+    for a, b in zip(got, ref):
+        assert a.is_cuda and b.is_cuda
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_pose_graph_on_cuda_matches_blocked(shards):
+    """The sharded solver on an in-process mesh of `shards` shards on the
+    card (cuda:0 repeated where there is one card) against the blocked
+    solver on the card, float64, 1e-10."""
+    need_card()
+    from sparse_gslam_tpu_torch.eval.synthetic_graphs import (
+        make_chain_graph,
+        to_pose_graph,
+    )
+    from sparse_gslam_tpu_torch.parallel import dist_solver, multihost
+
+    fields, _ = make_chain_graph(n_poses=500, n_closures=16, pad_to=512,
+                                 drift=0.005, seed=4)
+    g = to_pose_graph(fields, "cuda")
+    k = torch.cuda.device_count()
+    mesh = multihost.block_mesh(
+        shards, [torch.device(f"cuda:{i % k}") for i in range(shards)])
+    sh = dist_solver.optimize_partitioned(g, 1.0, 8, iterations=20,
+                                          mesh=mesh).poses
+    bl = dist_solver.optimize_partitioned(g, 1.0, 8, iterations=20).poses
+    assert sh.is_cuda
+    assert float((sh - bl).abs().max()) <= 1e-10

@@ -123,6 +123,9 @@ def test_runner_subprocess_imports_no_jax(tmp_path, case):
         "import sparse_gslam_tpu_torch.eval.simulate\n"
         "import sparse_gslam_tpu_torch.models.wall_follower\n"
         "import sparse_gslam_tpu_torch.io.crazyflie\n"
+        "import sparse_gslam_tpu_torch.parallel.multihost\n"
+        "import sparse_gslam_tpu_torch.graft_entry\n"
+        "import sparse_gslam_tpu_torch.eval.sweep\n"
         f"runner.main(['--dataset-dir', {str(data)!r}, '--dataset-name', "
         f"'sim-office', '--device', 'cpu', *{flags!r}, '--max-frames', "
         f"'{frames}', '--eval', '--map-png', {str(png)!r}])\n"
