@@ -25,12 +25,16 @@ their failures fail it after the kernels line):
 4. refine  -- the refinement kernel: the header's sinf/cosf on the
    card against the host C library's for every float32 of |theta| <=
    4 pi, then seeded cases (a room and a corridor whose J^T J is
-   singular along it, every N the callers pad to from 256 to 8192,
-   grids at 0.1 m (G=320) and 0.05 m (G=576), one stage, two stages
-   and the pose alone), each one launch and torch.equal to the plain
-   version on pose, covariance and probabilities, with its time, its
-   bound, its serial-chain latency and the GN steps its stages ran;
-   and a launch at N = 16384 refused.
+   singular along it, N from 256 to 65536, grids at 0.1 m (G=320) and
+   0.05 m (G=576), one stage, two stages and the pose alone), each one
+   launch and torch.equal to the plain version on pose, covariance and
+   probabilities, with its time, its bound, its serial-chain latency
+   and the GN steps its stages ran. N has no cap but the int32
+   offsets' (refine_cuda.N_LIMIT = 2^26), since the JAX backend pads
+   every query to 256 * 2^k without one: up to 8192 the rows are in
+   shared memory, above it in global scratch staged through a ring of
+   shared-memory slots (N = 16384, 32768, 65536 run that path). A
+   count that is not 256 * 2^k, and one above N_LIMIT, are refused.
 5. main    -- the frontend-only runner on a temporary copy of
    datasets/sim-office on cuda (--no-backend --eval --map-png): the
    kernel must have launched, the ATE line and the counts must equal
@@ -85,7 +89,10 @@ their failures fail it after the kernels line):
    against the same calls through the port on the host CPU (score,
    bounds and covariance tolerances FUSED_*, PIN_WCOV_ATOL; pose,
    candidate, pins' argmax and refinement equal), with each call's ms
-   on the card and the fused_match calls per query.
+   on the card and the fused_match calls per query; and
+   match_candidates_fused_throughput on the first chunk at depth 1 and
+   FUSED_DEPTH (ms per match of each round; every repeat's score within
+   1e-4 of its reference call's).
 11. realtime -- sim-office's first REALTIME_FRAMES frames through the
    runner's simulated-realtime mode (--realtime --rate 2 --map-every 100
    --live-view 2 --max-frames REALTIME_FRAMES: the frontend
@@ -133,7 +140,10 @@ their failures fail it after the kernels line):
    data/sim-office-beams60-accel.*; its accel_split beside phase 8's),
    the sweep's other points (beams6, beams8 held in full against
    data/sim-office-beams{6,8}.*; beams4_accel, the 4-beam run with
-   --accel-branch, its parity reported as beams60_accel's), and
+   --accel-branch, its parity reported as beams60_accel's), beams180
+   (the log's own 180 beams: scan_size: 180, multicloud_size: 2880,
+   queries padded to 512..8192; held in full against
+   data/sim-office-beams180.*, with the refinement launches by N), and
    mesh_office: sim-office with the backend's mesh and match_mesh set to
    2-shard meshes on the card (every solve sharded, every candidate
    search fanned out), held in full against data/sim-office-mesh.* (the
@@ -277,6 +287,24 @@ WORLDS = {
         "counts": {"frames": 663, "keyframes": 286, "landmarks": 105,
                    "submaps": 26, "loop_closures": 26, "pruned": 0,
                    "local_edges": 28, "kf_pins": 48},
+        "launches": {"precompute": 52, "rebuild_grids": 52, "map": 1},
+    },
+    "sim-office-beams180": {
+        # datasets/sim-office read at the log's own 180 beams (FLASER
+        # 180; the sweep's 16-scan multicloud window): queries padded
+        # to 512..8192 points (scripts/jax_beam_runs.py --beams 180)
+        "dataset": "sim-office",
+        "slam_yaml": {"scan_size": "180", "multicloud_size": "2880"},
+        "reference": "sim-office-beams180",
+        "ate": "ATE trans 0.0608 +- 0.0638 m, rot 0.580 +- 0.477 deg "
+               "(391 relations)",
+        "backend": "backend: 26 submaps, 30 closures (0 pruned)",
+        "closures": "closures: precision 1.00 (30/30 true), ridge-aware "
+                    "precision 1.00 (30/30), recall 1.00 (2/2 revisit "
+                    "segments detected)",
+        "counts": {"frames": 663, "keyframes": 286, "landmarks": 95,
+                   "submaps": 26, "loop_closures": 30, "pruned": 0,
+                   "local_edges": 29, "kf_pins": 64},
         "launches": {"precompute": 52, "rebuild_grids": 52, "map": 1},
     },
     # sim-office down the JAX package's accelerator branch (runner
@@ -1113,11 +1141,25 @@ REFINE_CASES = [
     ("room", 2048, ("score", 0.1), 14), ("room", 4096, (0.1,), 15),
     ("corridor", 4096, (0.05,), 16), ("room", 4096, ("score", 0.05), 17),
     ("corridor", 4096, ("score", 0.1), 18),
-    # the largest query the kernel takes (rows 131 KB of shared memory)
+    # the largest query whose rows fit in shared memory (131 KB)
     ("room", 8192, (0.1,), 19), ("corridor", 8192, ("score", 0.05), 20),
+    # rows in global scratch, staged through the ring of shared slots
+    ("room", 16384, (0.1,), 21), ("corridor", 16384, (0.05,), 22),
+    ("room", 16384, ("score", 0.05), 23),
+    ("corridor", 16384, ("score", 0.1), 24),
+    ("room", 32768, (0.05,), 25), ("room", 65536, (0.1,), 26, (False,)),
 ]
-# a padded point count the kernel must refuse
-REFINE_REFUSED_N = 16384
+# padded point counts the kernel must refuse: not 256 * 2^k, and 256 *
+# 2^k above its int32 offsets' limit
+REFINE_REFUSED_N = (12288, 2 * refine_cuda.N_LIMIT)
+
+
+def refine_covs(case):
+    """The want_cov values a REFINE_CASES entry runs: its fifth field,
+    else the covariance and, on one 0.1 m stage, the pose alone too."""
+    if len(case) > 4:
+        return case[4]
+    return (True, False) if case[2] == (0.1,) else (True,)
 
 
 def run_refine(stages, query, iterations=10, want_cov=True):
@@ -1156,85 +1198,98 @@ def kernel_refine(stages, query, iterations=10, want_cov=True):
 
 
 def check_refusal(stages):
-    """A launch at REFINE_REFUSED_N points: the wrapper raises (the
-    launcher's own check is the host build's, tested on the CPU)."""
-    n, dev = REFINE_REFUSED_N, torch.device("cuda")
-    query = (torch.zeros((1, n, 2), device=dev),
-             torch.ones((1, n), dtype=torch.bool, device=dev),
-             torch.zeros((1, 3), device=dev))
-    try:
-        refine_cuda.refine_cuda(stages, *query)
-        wrapper = "launched"
-    except ValueError as e:
-        wrapper = str(e)
-    emit({"phase": "refine_refused", "N": n, "wrapper": wrapper})
-    if wrapper == "launched":
-        raise AssertionError(f"a refinement at N={n} was not refused")
+    """Launches at each of REFINE_REFUSED_N points: the wrapper raises
+    (the launcher's own check is the host build's, tested on the CPU)."""
+    dev = torch.device("cuda")
+    for n in REFINE_REFUSED_N:
+        query = (torch.empty((1, n, 2), device=dev),
+                 torch.ones((1, n), dtype=torch.bool, device=dev),
+                 torch.zeros((1, 3), device=dev))
+        try:
+            refine_cuda.refine_cuda(stages, *query)
+            wrapper = "launched"
+        except ValueError as e:
+            wrapper = str(e)
+        del query
+        emit({"phase": "refine_refused", "N": n, "wrapper": wrapper})
+        if wrapper == "launched":
+            raise AssertionError(f"a refinement at N={n} was not refused")
 
 
 def phase_refine(host_lib):
     """The refinement kernel against its plain version on the card: the
     header's sinf/cosf on every float32 of |theta| <= 4 pi against the
     host's C library, then seeded cases (a room and a near-singular
-    corridor, N = 256 to 8192, grids at 0.1 m (G=320) and 0.05 m
+    corridor, N = 256 to 65536, grids at 0.1 m (G=320) and 0.05 m
     (G=576), one stage and two, and refine_pose alone), each
     torch.equal on pose, covariance and probabilities, with its time
     beside its bound, its serial-chain latency and the GN steps its
-    stages ran; then a launch at REFINE_REFUSED_N refused."""
+    stages ran; then launches at REFINE_REFUSED_N refused."""
     total, bad, secs = check_sincosf(host_lib)
     emit({"phase": "refine_sincosf", "values": total, "mismatches": bad,
           "seconds": secs})
     if bad:
         raise AssertionError(f"the header's sinf/cosf differ from the C "
                              f"library's on {bad} of {total} values")
+    # the plain version of every case in replay_pool's processes (each
+    # case's own seconds there; the largest N first, the longest jobs),
+    # while the card runs the kernel once
+    cases = [(*case[:3], want_cov) + refine_case(*case[:4])
+             for case in REFINE_CASES for want_cov in refine_covs(case)]
+    plains = {}
+    for i in sorted(range(len(cases)), key=lambda i: -cases[i][1]):
+        _, _, _, want_cov, stages, query = cases[i]
+        plains[i] = replay_pool().submit(plain_replay, (
+            [(g.cpu(), o.cpu(), r) for g, o, r in stages],
+            tuple(x.cpu() for x in query), 10, want_cov))
+    runs = []
+    for kind, n, keys, want_cov, stages, query in cases:
+        before = refine_cuda.refine_cuda.launches
+        got = run_refine(stages, query, want_cov=want_cov)
+        torch.cuda.synchronize()
+        launches = refine_cuda.refine_cuda.launches - before
+        direct, steps = kernel_refine(stages, query, want_cov=want_cov)
+        runs.append(([o.cpu() for o in got], [o.cpu() for o in direct],
+                     steps.tolist(), launches))
     rows = []
-    for kind, n, keys, seed in REFINE_CASES:
-        stages, query = refine_case(kind, n, keys, seed)
-        for want_cov in ((True, False) if keys == (0.1,) else (True,)):
-            before = refine_cuda.refine_cuda.launches
-            got = run_refine(stages, query, want_cov=want_cov)
-            torch.cuda.synchronize()
-            launches = refine_cuda.refine_cuda.launches - before
-            taps = TapRecorder()
-            t0 = time.perf_counter()
-            ref = plain_refine(stages, query, want_cov=want_cov, taps=taps)
-            plain_ms = (time.perf_counter() - t0) * 1e3
-            equal = refine_equal(got, ref)
-            err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-            cells = taps.cells()
-            bound_ms, bound_by, all_steps_chain_ms = refine_bound(
-                len(stages), n, cells, want_cov=want_cov)
-            direct, steps = kernel_refine(stages, query, want_cov=want_cov)
-            equal = equal and refine_equal(direct, ref)
-            steps = steps.tolist()
-            ms = time_ms(lambda: run_refine(stages, query,
-                                            want_cov=want_cov), 20)
-            w = (np.linalg.eigvalsh(got[1].double().cpu().numpy())
-                 if want_cov else None)
-            row = {
-                "case": f"{kind}_n{n}_{'+'.join(map(str, keys))}"
-                        f"{'' if want_cov else '_pose_only'}",
-                "stages": len(keys), "N": n, "valid": int(query[1].sum()),
-                "G": [int(g.shape[0]) for g, _, _ in stages],
-                "grid_cells_read": cells,
-                "launches": launches, "equal": equal, "max_abs_err": err,
-                "steps": steps[:len(keys)], "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by,
-                "serial_chain_ms": kernel_chain_ms(n, steps, want_cov),
-                "serial_chain_ms_all_steps": all_steps_chain_ms,
-                "cov_eig_ratio": (float(w[-1] / w[0]) if w is not None
-                                  and w[0] > 0 else None),
-            }
-            emit({"phase": "refine", **row})
-            if launches != 1:
-                raise AssertionError(f"refinement case {row['case']}: "
-                                     f"{launches} launches, not 1")
-            if not equal:
-                raise AssertionError(f"refine_pose kernel differs from its "
-                                     f"plain version on {row['case']}: "
-                                     f"max |d| {err}")
-            rows.append(row)
+    for i, ((kind, n, keys, want_cov, stages, query), run) in enumerate(
+            zip(cases, runs)):
+        got, direct, steps, launches = run
+        ref, cells, secs = plains[i].result()
+        equal = refine_equal(got, ref) and refine_equal(direct, ref)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        bound_ms, bound_by, all_steps_chain_ms = refine_bound(
+            len(stages), n, cells, want_cov=want_cov)
+        ms = time_ms(lambda: run_refine(stages, query, want_cov=want_cov),
+                     20)
+        w = (np.linalg.eigvalsh(got[1].double().numpy()) if want_cov
+             else None)
+        row = {
+            "case": f"{kind}_n{n}_{'+'.join(map(str, keys))}"
+                    f"{'' if want_cov else '_pose_only'}",
+            "stages": len(keys), "N": n, "valid": int(query[1].sum()),
+            "rows": "global, staged" if refine_cuda.staged_rows(n)
+                    else "shared",
+            "G": [int(g.shape[0]) for g, _, _ in stages],
+            "grid_cells_read": cells,
+            "launches": launches, "equal": equal, "max_abs_err": err,
+            "steps": steps[:len(keys)], "ms": ms,
+            "plain_ms": secs * 1e3, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "serial_chain_ms": kernel_chain_ms(n, steps, want_cov),
+            "serial_chain_ms_all_steps": all_steps_chain_ms,
+            "cov_eig_ratio": (float(w[-1] / w[0]) if w is not None
+                              and w[0] > 0 else None),
+        }
+        emit({"phase": "refine", **row})
+        if launches != 1:
+            raise AssertionError(f"refinement case {row['case']}: "
+                                 f"{launches} launches, not 1")
+        if not equal:
+            raise AssertionError(f"refine_pose kernel differs from its "
+                                 f"plain version on {row['case']}: "
+                                 f"max |d| {err}")
+        rows.append(row)
     check_refusal(stages)
     return rows
 
@@ -2461,6 +2516,8 @@ def phase_resume(out_dir):
 FUSED_CANDIDATES = 18
 FUSED_POINTS = 400
 FUSED_PAGE_K = 64
+# the throughput measurement's calls in flight (the JAX bench's depth)
+FUSED_DEPTH = 8
 FUSED_SCORE_ATOL = 1e-5
 FUSED_BOUND_RTOL = 1e-6
 FUSED_COV_RTOL, FUSED_COV_ATOL = 1e-3, 1e-5
@@ -2611,6 +2668,31 @@ def fused_calls(inp, device):
     return out, pages, fns, first_ms
 
 
+def fused_throughput(inp):
+    """match_candidates_fused_throughput on the card over the fused
+    phase's first chunk (16 candidates, cached spectra, K = 256) at
+    depth 1 and FUSED_DEPTH: {depth: ms per match of each of 3 rounds}
+    and the problems (a repeat's score off its reference call's)."""
+    dev = torch.device("cuda")
+    spec = matching_mod.search_spec(5.0, 1.0, 10.0, 0.1)
+    pyr = [precompute_pyramid(torch.from_numpy(g).to(dev), 5)
+           for g in inp["grids"][:16]]
+    sg, pooled = [p[0] for p in pyr], [p[4] for p in pyr]
+    spectra = matching_mod.grid_spectrum(torch.stack(sg), 384, 320)
+    origins = [torch.from_numpy(inp["origin"]).to(dev)] * 16
+    out, problems = {}, []
+    for depth in (1, FUSED_DEPTH):
+        try:
+            out[str(depth)] = matching_mod.match_candidates_fused_throughput(
+                sg, pooled, origins, inp["th0"][:16], inp["query"], spec,
+                0.7, 16, K=256, depth=depth, reps=3,
+                spectra_list=list(spectra))
+        except AssertionError as e:
+            problems.append(f"throughput at depth {depth}: a repeat's "
+                            f"score moved ({e})")
+    return out, problems
+
+
 def wall_ms(fn, reps=3):
     """Mean wall ms of fn() on the card (synchronized; the calls read
     their results on the host)."""
@@ -2666,8 +2748,11 @@ def phase_fused():
     if card_pages[f"query_k{FUSED_PAGE_K}"] <= 2:
         problems.append("the paging query did not page")
     ms = {k: wall_ms(fn) for k, fn in card_fns.items()}
+    throughput, failed = fused_throughput(inp)
+    problems += failed
     q = card["query_k256"]
     emit({"phase": "fused", "ms": ms, "first_call_ms": card_first_ms,
+          "throughput_ms_per_match": throughput,
           "host_cpu_ms": host_ms,
           "fused_calls_per_query": card_pages,
           "host_fused_calls_per_query": host_pages,
@@ -3136,8 +3221,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(REPO, "smoke_out"))
     ap.add_argument("--all-worlds", action="store_true",
-                    help="also run sim-loops, sim-corridor and sim-office "
-                         "with the smf and hough extractors in full")
+                    help="also run sim-loops, sim-corridor, sim-office "
+                         "with the smf and hough extractors and at other "
+                         "beam counts (180 among them) in full")
     args = ap.parse_args()
     t_start = time.perf_counter()
     os.makedirs(args.out, exist_ok=True)
@@ -3205,7 +3291,7 @@ def main() -> int:
         emit({"phase": "accel_split", "world": "sim-office-beams60",
               "accel_branch": runs["beams60_accel"]["split"],
               "cpu_branch": runs["beams60"]["split"]})
-        for beams in (6, 8):
+        for beams in (6, 8, 180):
             runs[f"beams{beams}"] = timed(
                 f"beams{beams}", phase_full, f"sim-office-beams{beams}",
                 f"beams{beams}", args.out)

@@ -1,6 +1,6 @@
 """Where the time of the port's CUDA scan refinement goes, on one GPU.
 
-    python3 scripts/refine_ablation.py
+    python3 scripts/refine_ablation.py [--staging]
 
 Builds a copy of sparse_gslam_tpu_torch/csrc/refine_pose.cu whose block
 program stamps clock64() on thread 0 of block 0 after each barrier and
@@ -15,12 +15,22 @@ adds the cycles since the previous stamp to the phase the barrier ends:
 and, for block sizes of 128, 256 and 512 threads (the header's
 constexpr THREADS patched in each copy; the package builds 512), times
 an unstamped copy and the stamped one on chip_smoke.py's seeded
-refinement cases (N = 256 to 4096). Prints one JSON line per (case,
-block size): cycles per launch of each phase, the GN steps each stage
-ran and both copies' ms, then the card's name and power limit. The six
+refinement cases with rows in shared memory (N = 256 to 8192). Prints
+one JSON line per (case, block size): cycles per launch of each phase,
+the GN steps each stage ran and both copies' ms, then the card's name
+and power limit. The six
 copies are built with nvcc, all at once, under
 sparse_gslam_tpu_torch/_build/ablation_refine/; their outputs are held
 against the committed kernel's (torch.equal).
+
+With --staging: the design choice for rows beyond shared memory (N >
+8192, the header's SMEM_ROWS_MAX). Two copies at 512 threads, stamped
+and unstamped: the committed one, whose reductions read the rows from a
+ring of shared-memory slots that bulk asynchronous copies (TMA) fill,
+and one with the header's STAGE_ROWS false, whose readers load the rows
+from the global scratch themselves (plain global loads); timed on
+chip_smoke.py's seeded cases from N = 16384 up, one JSON line per
+(case, copy).
 """
 from __future__ import annotations
 
@@ -42,6 +52,7 @@ OUT = os.path.join(grid_cuda.BUILD_DIR, "ablation_refine")
 PHASES = ("evaluate", "reduce", "solve", "other")
 THREAD_COUNTS = (128, 256, 512)
 THREADS_LINE = "constexpr int THREADS = 512;"
+STAGE_LINE = "constexpr bool STAGE_ROWS = true;"
 REPS = 20
 STAMPS = '''
 __device__ unsigned long long rpx_phase_cycles[4];
@@ -65,11 +76,10 @@ HEADER_SUBS = [
     ("  const Rows R{rows, column_stride(n)};\n",
      "  const Rows R{rows, column_stride(n)};\n"
      "  long long rpx_last = RPX_CLOCK();\n"),
-    ("gn_rows(tid, T, P, G, sh, R); });\n      ex.sync();\n",
-     "gn_rows(tid, T, P, G, sh, R); });\n      ex.sync();\n"
-     "      RPX_STAMP(0);\n"),
-    ("reduce_rows(tid, T, R, K, true, sh); });\n      ex.sync();\n",
-     "reduce_rows(tid, T, R, K, true, sh); });\n      ex.sync();\n"
+    ("        if (kStaged) rows_written_fence();\n      });\n"
+     "      ex.sync();\n      reduce(K, true);\n",
+     "        if (kStaged) rows_written_fence();\n      });\n"
+     "      ex.sync();\n      RPX_STAMP(0);\n      reduce(K, true);\n"
      "      RPX_STAMP(1);\n"),
     ("          gn_step(sh);\n        }\n      });\n      ex.sync();\n",
      "          gn_step(sh);\n        }\n      });\n      ex.sync();\n"
@@ -93,10 +103,12 @@ extern "C" int rpx_phases(unsigned long long* out, int reset) {
 '''
 
 
-def patch(threads, stamped):
+def patch(threads, stamped, staged=True):
     """A copy of the kernel's sources at `threads` threads a block (with
-    the stamps when `stamped`); returns (directory, source)."""
-    out = os.path.join(OUT, f"t{threads}{'_stamped' if stamped else ''}")
+    the stamps when `stamped`; with `staged` False, STAGE_ROWS false);
+    returns (directory, source)."""
+    out = os.path.join(OUT, f"t{threads}{'' if staged else '_global'}"
+                            f"{'_stamped' if stamped else ''}")
     os.makedirs(out, exist_ok=True)
     for f in grid_cuda.source_files(refine_cuda.SOURCE):
         shutil.copy(f, out)
@@ -104,6 +116,8 @@ def patch(threads, stamped):
     with open(header) as fh:
         text = fh.read()
     subs = [(THREADS_LINE, THREADS_LINE.replace("512", str(threads)))]
+    if not staged:
+        subs.append((STAGE_LINE, STAGE_LINE.replace("true", "false")))
     for old, new in subs + (HEADER_SUBS if stamped else []):
         if old not in text:
             raise RuntimeError(f"{old!r} is not in the kernel's header")
@@ -117,15 +131,17 @@ def patch(threads, stamped):
     return out, src
 
 
-def build():
-    """Every copy's library, compiled at once: {(threads, stamped):
-    (refine_pose_launch, rpx_phases or None)}."""
+def build(variants):
+    """Every copy's library, compiled at once: {(variant, stamped):
+    (refine_pose_launch, rpx_phases or None)}; a variant is a thread
+    count, or "global" (512 threads, STAGE_ROWS false)."""
     procs = {}
-    for threads in THREAD_COUNTS:
+    for variant in variants:
         for stamped in (False, True):
-            out, src = patch(threads, stamped)
+            out, src = patch(512 if variant == "global" else variant,
+                             stamped, staged=variant != "global")
             lib = os.path.join(out, "librefine_pose.so")
-            procs[threads, stamped] = lib, subprocess.Popen(
+            procs[variant, stamped] = lib, subprocess.Popen(
                 [grid_cuda._nvcc(), *refine_cuda.NVCC_FLAGS, "-o", lib, src],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     fns = {}
@@ -160,6 +176,7 @@ def launch(fn, stages, query, want_cov):
             len(stages), pts.data_ptr(), valid.view(torch.uint8).data_ptr(),
             init.data_ptr(), refine_cuda._y0(dev).data_ptr(), 1,
             pts.shape[1], 10, int(want_cov), *(t.data_ptr() for t in out),
+            refine_cuda._ptr(refine_cuda._scratch(1, pts.shape[1], dev)),
             torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"launch failed: CUDA error {rc}")
@@ -167,18 +184,23 @@ def launch(fn, stages, query, want_cov):
 
 
 def main() -> int:
+    staging = "--staging" in sys.argv[1:]
     smi = chip_smoke.phase_device()[2]
-    fns = build()
+    variants = (512, "global") if staging else THREAD_COUNTS
+    fns = build(variants)
     cycles = torch.zeros(4, dtype=torch.int64)
-    for kind, n, keys, seed in chip_smoke.REFINE_CASES:
+    for case in chip_smoke.REFINE_CASES:
+        kind, n, keys, seed = case[:4]
+        if staging != refine_cuda.staged_rows(n):
+            continue
         stages, query = chip_smoke.refine_case(kind, n, keys, seed)
-        for want_cov in ((True, False) if keys == (0.1,) else (True,)):
+        for want_cov in chip_smoke.refine_covs(case):
             ref, steps = chip_smoke.kernel_refine(stages, query,
                                                   want_cov=want_cov)
             steps = steps.tolist()
-            for threads in THREAD_COUNTS:
-                fn, _ = fns[threads, False]
-                stamped, phases = fns[threads, True]
+            for variant in variants:
+                fn, _ = fns[variant, False]
+                stamped, phases = fns[variant, True]
                 equal = all(chip_smoke.refine_equal(
                     [t[0] for t in launch(f, stages, query, want_cov)
                      [:len(ref)]], ref) for f in (fn, stamped))
@@ -197,14 +219,18 @@ def main() -> int:
                 chip_smoke.emit({
                     "case": f"{kind}_n{n}_{'+'.join(map(str, keys))}"
                             f"{'' if want_cov else '_pose_only'}",
-                    "N": n, "threads": threads, "steps": steps[:len(keys)],
+                    "N": n, "threads": 512 if variant == "global" else variant,
+                    "rows": ("global loads" if variant == "global" else
+                             "ring" if refine_cuda.staged_rows(n)
+                             else "shared"),
+                    "steps": steps[:len(keys)],
                     "equal": equal,
                     "cycles": dict(zip(PHASES, per)),
                     "share": {p: c / sum(per) for p, c in zip(PHASES, per)},
                     "ms": ms, "stamped_ms": stamped_ms,
                 })
                 if not equal:
-                    raise AssertionError(f"the {threads}-thread copy differs "
+                    raise AssertionError(f"the {variant} copy differs "
                                          f"from the kernel on this case")
     print(smi)
     return 0

@@ -54,7 +54,7 @@ def main() -> int:
     )
     from sparse_gslam_tpu_torch.parallel import dist_solver, multihost
 
-    cpu = args.device == "cpu" or not torch.cuda.is_available()
+    cpu = args.device == "cpu"
     multihost.initialize(backend="gloo" if cpu else None)
     try:
         f, _ = make_chain_graph(n_poses=args.n_poses,

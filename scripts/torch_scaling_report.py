@@ -47,7 +47,7 @@ def main():
     )
     from sparse_gslam_tpu_torch.parallel import dist_solver, multihost
 
-    cpu = args.device == "cpu" or not torch.cuda.is_available()
+    cpu = args.device == "cpu"
     dev = torch.device("cpu" if cpu else "cuda")
     f, _ = make_chain_graph(n_poses=args.poses - 100,
                             n_closures=args.closures, pad_to=args.poses)

@@ -28,13 +28,21 @@
 
 namespace rpx {
 
-// padded points a refinement takes: the sizes the callers pad to
-// (256 * 2^k), up to refine_exact.MAX_POINTS
-constexpr int NMAX = 8192;
+// the largest padded point count the header's int32 offsets hold: one
+// problem's rows and window sums, 16 (N + 4) + 4 ceil((N + 3) / 32)
+// bytes, stay below 2^31 (ops/refine_cuda.N_LIMIT)
+constexpr int N_LIMIT = 1 << 26;
+// padded points a refinement takes: the sizes the callers pad to,
+// 256 * 2^k (the JAX backend's _bucket(n, 256) has no cap)
 RPX_HD bool takes_points(int n) {
-  return n == 256 || n == 512 || n == 1024 || n == 2048 || n == 4096 ||
-         n == NMAX;
+  return n >= 256 && n <= N_LIMIT && (n & (n - 1)) == 0;
 }
+// the rows of the GN system live in the block's shared memory up to this
+// N (131 KB at 8192; a block has at most 227 KB), above it in a global
+// scratch buffer that a ring of shared-memory slots stages
+// (reduce_rows_staged)
+constexpr int SMEM_ROWS_MAX = 8192;
+RPX_HD bool staged_rows(int n) { return n > SMEM_ROWS_MAX; }
 // threads of the block, whatever N is (scripts/refine_ablation.py timed
 // 128, 256 and 512; PERF.md); the reductions' roles need four warps
 // (reduce_rows)
@@ -352,8 +360,9 @@ RPX_HD void fma16(const F4 x[4], const F4 y[4], float* acc) {
 // before it runs its FMAs, so that on the card neither the loads'
 // latency nor their instruction count but the chain's FMA latency (4
 // cycles a term; 5.5 measured on an H100) sets its pace.
-RPX_HD float dot_chain(const float* a, const float* b, int count) {
-  float acc = 0.0f;
+// (`acc` carries a chain on from an earlier part of the arrays)
+RPX_HD float dot_chain(const float* a, const float* b, int count,
+                       float acc = 0.0f) {
   int k = 0;
   if (count >= 16) {
     F4 xa[4], ya[4], xb[4], yb[4];
@@ -379,17 +388,16 @@ RPX_HD float dot_chain(const float* a, const float* b, int count) {
   return acc;
 }
 
-// (J^T r)[i] for one column a of J as XLA's 8-wide row gemv: lane l's
-// FMA chain over rows l, l + 8, ... below K8 = K rounded down to 8, and
-// the remainder's chain over K8 <= k < K (a, r 16-byte aligned)
-RPX_HD void gemv_column(const float* a, const float* r, int K,
-                        float lanes[8], float* tail) {
-  float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  const int K8 = K / 8 * 8;
+// Rows [0, len) of XLA's 8-wide row gemv for one column a of J: rows
+// below len8 (a multiple of 8) into the lanes' FMA chains acc[l] (row k
+// to lane k % 8), the others into the remainder's chain *tail (a, r
+// 16-byte aligned; the chains carry on from earlier rows)
+RPX_HD void gemv_part(const float* a, const float* r, int len, int len8,
+                      float acc[8], float* tail) {
 #if defined(__CUDACC__)
 #pragma unroll 4
 #endif
-  for (int k = 0; k < K8; k += 8) {
+  for (int k = 0; k < len8; k += 8) {
     const F4 a0 = load4(a + k), a1 = load4(a + k + 4);
     const F4 r0 = load4(r + k), r1 = load4(r + k + 4);
     for (int q = 0; q < 4; ++q) {
@@ -397,8 +405,19 @@ RPX_HD void gemv_column(const float* a, const float* r, int K,
       acc[4 + q] = fma32(a1.v[q], r1.v[q], acc[4 + q]);
     }
   }
+  float t = *tail;
+  for (int k = len8; k < len; ++k) t = fma32(a[k], r[k], t);
+  *tail = t;
+}
+
+// (J^T r)[i] for one column a of J as XLA's 8-wide row gemv: lane l's
+// FMA chain over rows l, l + 8, ... below K8 = K rounded down to 8, and
+// the remainder's chain over K8 <= k < K
+RPX_HD void gemv_column(const float* a, const float* r, int K,
+                        float lanes[8], float* tail) {
+  float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   float t = 0.0f;
-  for (int k = K8; k < K; ++k) t = fma32(a[k], r[k], t);
+  gemv_part(a, r, K, K / 8 * 8, acc, &t);
   for (int l = 0; l < 8; ++l) lanes[l] = acc[l];
   *tail = t;
 }
@@ -417,7 +436,19 @@ RPX_HD float gemv_combine(const float* lanes, float tail) {
 // (For n <= 32 the one window is the sum in order.)
 RPX_HD int n_windows(int n) { return (n + 31) / 32; }
 RPX_HD int window_pad(int n) { return (n_windows(n) * 32 - n) / 2; }
-constexpr int MAX_WINDOWS = (NMAX + 3 + 31) / 32;
+// the first-level window sums a refinement of N points keeps (those of
+// the K = N + 3 rows), rounded up to four floats
+RPX_HD int window_floats(int n) { return (n_windows(n + 3) + 3) / 4 * 4; }
+// the dynamic shared memory of a refinement with its rows there
+RPX_HD int shared_rows_bytes(int n) {
+  return rows_bytes(n) + window_floats(n) * (int)sizeof(float);
+}
+// the global scratch of one problem with staged rows: its rows, then its
+// window sums (a multiple of four floats: each problem's rows start 16
+// bytes aligned)
+RPX_HD int scratch_floats(int n) {
+  return 4 * column_stride(n) + window_floats(n);
+}
 
 // window w's sum of x[i]^2 (each square rounded) or of x[i]
 RPX_HD float window_sum(const float* x, int n, int w, bool square) {
@@ -445,8 +476,22 @@ RPX_HD float windows_total(float* w, int n) {
   return acc;
 }
 
+// x86 rsqrtss of a normal float32 x from the table y0 of its values on
+// [1, 4) (ops/refine_exact.rsqrtss_table: entry 1024 p + m for exponent
+// parity p and top 10 mantissa bits m): rsqrtss(4^k y) = 2^-k rsqrtss(y)
+RPX_HD float rsqrtss_approx(float x, const float* y0) {
+  const uint32_t u = f2u(x);
+  const int e = (int)((u >> 23) & 0xff) - 127;
+  const int p = e & 1;
+  const int k = (e - p) / 2;
+  const uint32_t scale_bits = (uint32_t)(127 - k) << 23;
+  float scale;
+  memcpy(&scale, &scale_bits, 4);
+  return y0[1024 * p + ((u >> 13) & 1023)] * scale;
+}
+
 // 20 / sqrt(n) as XLA computes it: the x86 rsqrtss approximation y0
-// (a table by n, from the host) refined by two Newton steps
+// (rsqrtss_approx) refined by two Newton steps
 RPX_HD float occupied_weight(float n, float y0) {
   float e = fma32(y0, n * y0, -1.0f);
   const float y1 = fma32(-0.5f * y0, e, y0);
@@ -1033,6 +1078,102 @@ RPX_HD void censi_cov(const float H[3][3], float sigma2, float cov[9]) {
 }
 
 // ---------------------------------------------------------------------
+// Rows beyond shared memory (N > SMEM_ROWS_MAX). The rows live in a
+// per-problem global scratch buffer (16 (N + 4) bytes, 1 MB at N =
+// 65536: it stays in the 50 MB L2). One producer thread stages them,
+// RING_CHUNK rows of the four columns at a time, into a ring of
+// RING_SLOTS shared-memory slots with Hopper's bulk asynchronous copies
+// (cp.async.bulk, completion counted in bytes on the slot's `full`
+// mbarrier); the J^T J chains and the J^T r gemv read each chunk from
+// its slot with their 128-bit shared loads, in order, and release it on
+// the slot's `empty` mbarrier, which the producer waits for before it
+// refills the slot. The chunks continue the same chains: the rows' home
+// changes no sum. The host build reads each chunk where it lies.
+// ---------------------------------------------------------------------
+
+constexpr int RING_SLOTS = 4;
+constexpr int RING_CHUNK = 1024;  // rows a slot holds: 4 columns x 4 KB
+// the readers that release each slot: the six chain threads and the
+// three gemv threads (reduce_rows_staged)
+constexpr int RING_READERS = 9;
+// the producer (a warp of its own) and the first window thread
+constexpr int RING_PRODUCER = 64, STAGED_WINDOWS = 96;
+static_assert(THREADS > STAGED_WINDOWS, "reduce_rows_staged's roles");
+// false: the readers load each chunk from the scratch buffer themselves
+// (plain global loads; scripts/refine_ablation.py --staging times both)
+constexpr bool STAGE_ROWS = true;
+RPX_HD int ring_bytes() {
+  return RING_SLOTS * 4 * RING_CHUNK * (int)sizeof(float);
+}
+RPX_HD int ring_chunks(int count) {
+  return (count + RING_CHUNK - 1) / RING_CHUNK;
+}
+
+struct Ring {
+  float* slots = nullptr;     // (shared) column q of slot s at
+                              // (4 s + q) RING_CHUNK
+  uint64_t* full = nullptr;   // (shared) per slot: its chunk has landed
+  uint64_t* empty = nullptr;  // (shared) per slot: its readers are done
+};
+
+#ifdef __CUDA_ARCH__
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)), "r"(count)
+               : "memory");
+}
+// the mbarriers' initialisation made visible to the async proxy
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)), "r"(bytes)
+      : "memory");
+}
+// wait until the phase of parity `parity` of the mbarrier has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+// `bytes` (a multiple of 16) from global src to shared dst (both 16-byte
+// aligned), counted on `bar` as they land
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+#endif
+
+// the rows a thread wrote to global memory made visible to the bulk
+// copies (the async proxy) that read them after the next barrier
+RPX_HD void rows_written_fence() {
+#ifdef __CUDA_ARCH__
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+#endif
+}
+
+// ---------------------------------------------------------------------
 // One whole refinement as a block program: `ex.each(f)` runs f(tid) for
 // each of the block's THREADS threads, `ex.sync()` is the barrier
 // between steps. The kernel runs it with a block of THREADS threads
@@ -1058,22 +1199,24 @@ struct Problem {
   const float* pts;     // (N, 2)
   const uint8_t* valid; // (N,)
   const float* init;    // (3,)
-  const float* y0;      // (NMAX,) rsqrtss approximation of n = 1..NMAX
+  const float* y0;      // (2048,) rsqrtss on [1, 4) (rsqrtss_approx)
   int iterations;
   bool want_cov;        // false: the pose alone (refine_pose)
   float* pose_out;      // (3,)
   float* cov_out;       // (9,) when want_cov
   float* probs_out;     // (N,) when want_cov: the first stage's
   int* iters_out;       // (2,) GN steps each stage ran (0: not run)
+  float* win;           // (window_floats(N),) first-level window sums
+                        // of sum(r^2): beside the rows
 };
 
-// The block's scalars. The rows (4 (N + 3) floats) are in dynamic shared
-// memory on the card.
+// The block's scalars. The rows (4 (N + 3) floats) and the window sums
+// are in dynamic shared memory on the card, or with staged rows in the
+// problem's global scratch.
 struct Shared {
   float H[6];               // J^T J: (0,0) (0,1) (0,2) (1,1) (1,2) (2,2)
   float lanes[24];          // J^T r: eight lanes per entry
   float tails[3];           // and the rows past the last multiple of 8
-  float win[MAX_WINDOWS];   // first-level window sums of sum(r^2)
   float pose[3], anchor[3], trial[3];
   float c, s;               // cos, sin of trial[2] (of pose[2] for cov)
   float cost;               // sum(r^2) of the rows at pose
@@ -1082,9 +1225,9 @@ struct Shared {
   int done;                 // the stage's later steps would repeat
 };
 
-// The GN system's rows from `base` (shared memory on the card),
-// structure of arrays: J's three columns, then r, `stride` floats apart
-// (column_stride)
+// The GN system's rows from `base` (shared memory on the card, or the
+// problem's global scratch), structure of arrays: J's three columns,
+// then r, `stride` floats apart (column_stride)
 struct Rows {
   float* base;
   int stride;
@@ -1134,23 +1277,116 @@ RPX_HD void gn_rows(int tid, int T, const Problem& P, const GridRef& G,
   }
 }
 
+// J^T J's entry tid < 6 as its (row, column) of J
+RPX_HD int chain_i(int tid) { return tid < 3 ? 0 : (tid < 5 ? 1 : 2); }
+RPX_HD int chain_j(int tid) { return tid < 3 ? tid : (tid < 5 ? tid - 2 : 2); }
+
 // Thread tid's part of the reductions over the first K rows, each in
 // XLA's order: threads 0-5 (warp 0) the six J^T J chains of K FMAs (the
 // kernel's critical path), with `gemv` threads 32-34 (warp 1) J^T r's
 // three entries (eight lanes each, and the rows past the last multiple
-// of 8), threads from 64 on the first-level windows of sum(r^2).
+// of 8), threads from 64 on the first-level windows of sum(r^2) into
+// win.
 RPX_HD void reduce_rows(int tid, int T, const Rows& R, int K, bool gemv,
-                        Shared& sh) {
+                        Shared& sh, float* win) {
   if (tid < 6) {
-    const int i = tid < 3 ? 0 : (tid < 5 ? 1 : 2);
-    const int j = tid < 3 ? tid : (tid < 5 ? tid - 2 : 2);
-    sh.H[tid] = dot_chain(R.J(i), R.J(j), K);
+    sh.H[tid] = dot_chain(R.J(chain_i(tid)), R.J(chain_j(tid)), K);
   } else if (tid >= 32 && tid < 35) {
     const int i = tid - 32;
     if (gemv) gemv_column(R.J(i), R.r(), K, sh.lanes + 8 * i, sh.tails + i);
   } else if (tid >= 64) {
     for (int w = tid - 64; w < n_windows(K); w += T - 64)
-      sh.win[w] = window_sum(R.r(), K, w, true);
+      win[w] = window_sum(R.r(), K, w, true);
+  }
+}
+
+// Chunk `c` of a pass whose first chunk is the ring's `seq`-th: the
+// chunk's four columns from *col0, `*stride` floats apart. On the card
+// with the ring, from its slot once it has landed; else in place.
+RPX_HD const float* ring_acquire(const Ring& ring, const Rows& R,
+                                 unsigned seq, int c, int* stride) {
+#ifdef __CUDA_ARCH__
+  if (ring.slots != nullptr) {
+    const unsigned q = seq + c, s = q % RING_SLOTS;
+    mbar_wait(ring.full + s, (q / RING_SLOTS) & 1);
+    *stride = RING_CHUNK;
+    return ring.slots + 4 * s * RING_CHUNK;
+  }
+#endif
+  *stride = R.stride;
+  return R.base + c * RING_CHUNK;
+}
+
+RPX_HD void ring_release(const Ring& ring, unsigned seq, int c) {
+#ifdef __CUDA_ARCH__
+  if (ring.slots != nullptr) mbar_arrive(ring.empty + (seq + c) % RING_SLOTS);
+#endif
+}
+
+// The producer: the pass's `chunks` chunks of the first `count` rows
+// into the ring, each slot once its readers have released its last
+// chunk (the card only)
+RPX_HD void ring_fill(const Ring& ring, const Rows& R, unsigned seq,
+                      int count) {
+#ifdef __CUDA_ARCH__
+  if (ring.slots == nullptr) return;
+  const int filled = (count + 3) / 4 * 4;  // whole 16-byte groups
+  for (int c = 0; c < ring_chunks(count); ++c) {
+    const unsigned q = seq + c, s = q % RING_SLOTS, f = q / RING_SLOTS;
+    if (f > 0) mbar_wait(ring.empty + s, (f - 1) & 1);
+    const int lo = c * RING_CHUNK;
+    const int len = filled - lo < RING_CHUNK ? filled - lo : RING_CHUNK;
+    const uint32_t bytes = (uint32_t)len * (uint32_t)sizeof(float);
+    mbar_arrive_expect_tx(ring.full + s, 4 * bytes);
+    for (int col = 0; col < 4; ++col)
+      bulk_copy(ring.slots + (4 * s + col) * RING_CHUNK,
+                R.base + col * R.stride + lo, bytes, ring.full + s);
+  }
+#endif
+}
+
+// reduce_rows over rows in global memory, in the same orders: the six
+// chains and the three gemv threads take the rows chunk by chunk
+// (ring_acquire; the gemv threads without `gemv` release them unread),
+// thread RING_PRODUCER fills the ring, the threads from STAGED_WINDOWS
+// on sum the windows of sum(r^2) from the rows where they lie.
+RPX_HD void reduce_rows_staged(int tid, int T, const Rows& R, int K,
+                               bool gemv, Shared& sh, float* win,
+                               const Ring& ring, unsigned seq) {
+  const bool chain = tid < 6, gemv_thread = tid >= 32 && tid < 35;
+  if (chain || gemv_thread) {
+    const int i = chain ? chain_i(tid) : tid - 32;
+    const int j = chain ? chain_j(tid) : 3;  // column 3: r
+    const int K8 = K / 8 * 8;
+    float acc = 0.0f, tail = 0.0f;
+    float lanes[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    for (int c = 0; c < ring_chunks(K); ++c) {
+      const int lo = c * RING_CHUNK;
+      const int len = K - lo < RING_CHUNK ? K - lo : RING_CHUNK;
+      int stride;
+      const float* cols = ring_acquire(ring, R, seq, c, &stride);
+      const float* a = cols + i * stride;
+      const float* b = cols + j * stride;
+      if (chain) {
+        acc = dot_chain(a, b, len, acc);
+      } else if (gemv) {
+        const int len8 = K8 - lo < 0 ? 0 : (K8 - lo < len ? K8 - lo : len);
+        gemv_part(a, b, len, len8, lanes, &tail);
+      }
+      ring_release(ring, seq, c);
+    }
+    if (chain) {
+      sh.H[tid] = acc;
+    } else if (gemv) {
+      for (int l = 0; l < 8; ++l) sh.lanes[8 * i + l] = lanes[l];
+      sh.tails[i] = tail;
+    }
+  } else if (tid == RING_PRODUCER) {
+    ring_fill(ring, R, seq, K);
+  } else if (tid >= STAGED_WINDOWS) {
+    for (int w = tid - STAGED_WINDOWS; w < n_windows(K);
+         w += T - STAGED_WINDOWS)
+      win[w] = window_sum(R.r(), K, w, true);
   }
 }
 
@@ -1167,11 +1403,26 @@ RPX_HD void gn_step(Shared& sh) {
   sh.s = glibc_sincosf(sh.trial[2], 0);
 }
 
-template <class Exec>
+// kStaged: the rows in global memory (staged_rows(N)), reduced through
+// `ring` (reduce_rows_staged); else in shared memory (`rows`)
+template <bool kStaged, class Exec>
 RPX_HD void refine_block(Exec& ex, const Problem& P, Shared& sh,
-                         float* rows) {
+                         float* rows, const Ring& ring = Ring{}) {
   const int n = P.n, K = n + 3, T = THREADS;
   const Rows R{rows, column_stride(n)};
+  // the ring's chunks before the current pass (every thread counts them)
+  unsigned seq = 0;
+  // the reductions of the first `count` rows into sh and P.win
+  auto reduce = [&](int count, bool gemv) {
+    ex.each([&](int tid) {
+      if (kStaged)
+        reduce_rows_staged(tid, T, R, count, gemv, sh, P.win, ring, seq);
+      else
+        reduce_rows(tid, T, R, count, gemv, sh, P.win);
+    });
+    ex.sync();
+    if (kStaged) seq += ring_chunks(count);
+  };
   ex.each([&](int tid) {
     if (tid == 0) {
       sh.n_valid = 0;
@@ -1192,7 +1443,8 @@ RPX_HD void refine_block(Exec& ex, const Problem& P, Shared& sh,
     ex.each([&](int tid) {
       if (tid == 0) {
         const int nn = sh.n_valid > 1 ? sh.n_valid : 1;
-        sh.w_occ = occupied_weight((float)nn, P.y0[nn - 1]);
+        sh.w_occ = occupied_weight((float)nn,
+                                   rsqrtss_approx((float)nn, P.y0));
         for (int k = 0; k < 3; ++k) sh.anchor[k] = sh.trial[k] = sh.pose[k];
         sh.c = glibc_sincosf(sh.pose[2], 1);
         sh.s = glibc_sincosf(sh.pose[2], 0);
@@ -1201,26 +1453,30 @@ RPX_HD void refine_block(Exec& ex, const Problem& P, Shared& sh,
     });
     ex.sync();
     if (P.iterations > 0) {  // the rows at the stage's first pose
-      ex.each([&](int tid) { gn_rows(tid, T, P, G, sh, R); });
+      ex.each([&](int tid) {
+        gn_rows(tid, T, P, G, sh, R);
+        if (kStaged) rows_written_fence();
+      });
       ex.sync();
-      ex.each([&](int tid) { reduce_rows(tid, T, R, K, true, sh); });
-      ex.sync();
+      reduce(K, true);
       ex.each([&](int tid) {
         if (tid == 0) {
-          sh.cost = windows_total(sh.win, K);
+          sh.cost = windows_total(P.win, K);
           gn_step(sh);
         }
       });
       ex.sync();
     }
     for (int it = 0; it < P.iterations; ++it) {
-      ex.each([&](int tid) { gn_rows(tid, T, P, G, sh, R); });
+      ex.each([&](int tid) {
+        gn_rows(tid, T, P, G, sh, R);
+        if (kStaged) rows_written_fence();
+      });
       ex.sync();
-      ex.each([&](int tid) { reduce_rows(tid, T, R, K, true, sh); });
-      ex.sync();
+      reduce(K, true);
       ex.each([&](int tid) {
         if (tid == 0) {
-          const float cost = windows_total(sh.win, K);
+          const float cost = windows_total(P.win, K);
           P.iters_out[stage] = it + 1;
           if (cost <= sh.cost) {  // keep the trial
             bool same = true;
@@ -1263,14 +1519,14 @@ RPX_HD void refine_block(Exec& ex, const Problem& P, Shared& sh,
           R.r()[i] = P.valid[i] ? 1.0f - p : 0.0f;
         }
       }
+      if (kStaged) rows_written_fence();
     });
     ex.sync();
     if (!last) continue;
-    ex.each([&](int tid) { reduce_rows(tid, T, R, n, false, sh); });
-    ex.sync();
+    reduce(n, false);
     ex.each([&](int tid) {
       if (tid == 0) {
-        const float ssum = windows_total(sh.win, n);
+        const float ssum = windows_total(P.win, n);
         const int nn = sh.n_valid > 1 ? sh.n_valid : 1;
         const float sigma2 = ssum / fmaxf((float)nn + -3.0f, 1.0f);
         float H[3][3];

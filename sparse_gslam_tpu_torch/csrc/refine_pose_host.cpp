@@ -26,6 +26,19 @@ struct HostExec {
   void sync() {}
 };
 
+// One problem's block program on `rows` (its rows, then its window
+// sums): above rpx::SMEM_ROWS_MAX points the staged variant, whose
+// chains and gemv read the rows chunk by chunk in place
+void run_block(rpx::Problem& P, std::vector<float>& rows) {
+  rpx::Shared sh;
+  HostExec ex;
+  P.win = rows.data() + 4 * rpx::column_stride(P.n);
+  if (rpx::staged_rows(P.n))
+    rpx::refine_block<true>(ex, P, sh, rows.data());
+  else
+    rpx::refine_block<false>(ex, P, sh, rows.data());
+}
+
 }  // namespace
 
 // Same arguments as refine_pose_launch, on host memory. Returns 0, or 1
@@ -39,8 +52,7 @@ extern "C" int refine_pose_host(
   if (!rpx::takes_points(n) || batch < 1 ||
       (stages != 1 && stages != 2) || iterations < 0)
     return 1;
-  rpx::Shared sh;
-  std::vector<float> rows(rpx::rows_bytes(n) / sizeof(float));
+  std::vector<float> rows(rpx::scratch_floats(n));
   for (int b = 0; b < batch; ++b) {
     rpx::Problem P;
     P.grid[0] = {g0, size0, origin0[0], origin0[1], res0};
@@ -57,8 +69,7 @@ extern "C" int refine_pose_host(
     P.cov_out = cov + 9 * b;
     P.probs_out = probs + (size_t)b * n;
     P.iters_out = iters + 2 * b;
-    HostExec ex;
-    rpx::refine_block(ex, P, sh, rows.data());
+    run_block(P, rows);
   }
   return 0;
 }
@@ -71,8 +82,7 @@ extern "C" int refine_pins_host(
     const float* y0, int batch, int n, int iterations, float* pose,
     float* cov, float* probs, int* iters) {
   if (!rpx::takes_points(n) || batch < 1 || iterations < 0) return 1;
-  rpx::Shared sh;
-  std::vector<float> rows(rpx::rows_bytes(n) / sizeof(float));
+  std::vector<float> rows(rpx::scratch_floats(n));
   for (int b = 0; b < batch; ++b) {
     const int id = ids[b];
     rpx::Problem P;
@@ -91,8 +101,7 @@ extern "C" int refine_pins_host(
     P.cov_out = cov + 9 * b;
     P.probs_out = probs + (size_t)b * n;
     P.iters_out = iters + 2 * b;
-    HostExec ex;
-    rpx::refine_block(ex, P, sh, rows.data());
+    run_block(P, rows);
   }
   return 0;
 }

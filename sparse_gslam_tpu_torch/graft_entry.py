@@ -10,7 +10,8 @@ an n-shard mesh (parallel/multihost.block_mesh: the chain halo between
 shards and the summed separator system), run once at the JAX package's
 sizes (128 poses a shard, 32 closures across the chain, 24 GN iterations
 with GNC annealing) and held to the dense single-device solve within
-1e-3. Both run on the card unless `device` says otherwise.
+1e-3. Both run on the card unless `device` says otherwise, and raise
+without one: device="cpu" runs them on the CPU.
 """
 from __future__ import annotations
 
@@ -19,9 +20,14 @@ import torch
 
 
 def _device(device):
+    """`device`, or the card; without one, a RuntimeError naming the CPU
+    option."""
     if device is not None:
         return torch.device(device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device: the entry points run on the '
+                           'card; pass device="cpu" to run on the CPU')
+    return torch.device("cuda")
 
 
 def entry(device=None):
@@ -45,9 +51,9 @@ def entry(device=None):
 
 def dryrun_multichip(n_devices: int, device=None) -> float:
     """Runs the sharded solve on n_devices shards (this process's cards
-    in turn, or `device` for all of them; the CPU without a card) and
-    asserts it within 1e-3 of the dense solver. Returns the largest
-    difference."""
+    in turn, or `device` for all of them; without a card and without
+    `device` it raises) and asserts it within 1e-3 of the dense solver.
+    Returns the largest difference."""
     from .eval.synthetic_graphs import make_chain_graph, to_pose_graph
     from .ops.solvers import optimize_pose_graph
     from .parallel import multihost

@@ -22,7 +22,9 @@ helpers (`pin_bound_host`, `correlate_window_host`, `score_volume_cov`)
 are numpy on the host, as in the JAX package. The last section ports
 the JAX package's accelerator branch (`fused_match`,
 `match_candidates_fused`, `pin_eval_batch`), which
-models/backend.py runs with accel_branch.
+models/backend.py runs with accel_branch, and the JAX package's
+throughput measurement of the fused matcher
+(`match_candidates_fused_throughput`).
 
 Device work runs on the device of the input tensors, in float32 as in
 the JAX package. Bit parity of the cell indices with the JAX package's
@@ -46,6 +48,7 @@ import ctypes.util
 import functools
 import math
 import os
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -1587,6 +1590,83 @@ def match_candidates_fused(
     if best[0] is None or best[1] < min_score:
         return None, best[1], None, None
     return best
+
+
+def match_candidates_fused_throughput(
+    score_grids,
+    pooled_grids,
+    origins,
+    init_thetas,
+    points,
+    spec: SearchSpec,
+    min_score: float,
+    stride: int,
+    fft_margin_bucket: int = 64,
+    K: int = 64,
+    depth: int = 8,
+    reps: int = 5,
+    spectra_list=None,
+):
+    """Sustained throughput of the fused matcher, as the JAX package
+    measures it: one reference call, then `reps` rounds of `depth`
+    fused_match calls enqueued back to back with one synchronise each.
+    Returns each round's wall milliseconds per match, and asserts every
+    call's score within 1e-4 of the reference's. One chunk of
+    candidates (all of them in one call), the query padded to a power
+    of two from 256 points. fused_match reads its window moments on the
+    host (stage E), so calls in flight overlap little on the card."""
+    dev = score_grids[0].device
+    size = score_grids[0].shape[0]
+    C = len(score_grids)
+    N = len(points)
+    n_bucket = 256
+    while n_bucket < N:
+        n_bucket *= 2
+    pts = np.zeros((n_bucket, 2), np.float32)
+    pts[:N] = _host(points)
+    pts_d = torch.from_numpy(pts).to(dev)
+    valid_d = torch.from_numpy(np.arange(n_bucket) < N).to(dev)
+    R_full = 2 * spec.n_angular + 1
+    ks = np.arange(R_full) - spec.n_angular
+    fft_size = size + fft_margin_bucket
+    k_eff = min(K, C * R_full)
+    thetas = torch.from_numpy(np.stack(
+        [(float(t) + ks * spec.angular_step).astype(np.float32)
+         for t in init_thetas])).to(dev)
+    grids = torch.stack(list(score_grids))
+    pooled = torch.stack(list(pooled_grids))
+    origs = torch.stack([torch.as_tensor(o, dtype=torch.float32, device=dev)
+                         for o in origins])
+    live = torch.ones(C, dtype=torch.bool, device=dev)
+    th0 = torch.from_numpy(np.asarray(init_thetas, np.float32)).to(dev)
+    if os.environ.get("SLAM_MATCH_EXACT", "nudft") == "fft":
+        spec_stack = None
+    elif spectra_list is not None:
+        spec_stack = torch.stack(list(spectra_list))
+    else:
+        spec_stack = grid_spectrum(grids, int(fft_size), int(size))
+
+    def call():
+        return fused_match(
+            grids, pooled, origs, thetas, live, pts_d, valid_d, th0,
+            np.float32(spec.angular_step), np.float32(min_score),
+            float(spec.resolution), int(spec.n_linear), int(size),
+            int(fft_size), int(stride), int(k_eff), spectra=spec_stack)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    ref_score = float(call()[0])
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        outs = [call() for _ in range(depth)]
+        sync()
+        times.append((time.perf_counter() - t0) / depth * 1e3)
+        for o in outs:
+            assert abs(float(o[0]) - ref_score) < 1e-4
+    return times
 
 
 def _volume_cov(scores, thetas, init_theta, resolution: float,

@@ -3,7 +3,12 @@ refine_pose_cov_two_stage call (ops/matching.py).
 
 The kernel (csrc/refine_pose.cu, one block of 512 threads per
 refinement whatever the padded point count, its arithmetic and block
-program in csrc/refine_pose_exact.cuh) is compiled with nvcc for sm_90a
+program in csrc/refine_pose_exact.cuh) takes every padded count the
+callers make, 256 * 2^k (`takes_points`): up to 8192 points (the
+header's SMEM_ROWS_MAX) its rows are in the block's shared memory, above
+it in a global scratch buffer that the wrapper allocates here (16 (N + 4)
+bytes a problem and the window sums; `staged_rows`), staged through a
+ring of shared-memory slots. It is compiled with nvcc for sm_90a
 at first use into sparse_gslam_tpu_torch/_build/
 (ops/grid_cuda.build_library), with --fmad=false so that the only fused
 multiply-adds are the header's explicit ones, and loaded with ctypes.
@@ -32,7 +37,7 @@ import os
 import torch
 
 from . import grid_cuda
-from .refine_exact import MAX_POINTS, rsqrtss_table
+from .refine_exact import rsqrtss_table
 
 SOURCE = os.path.join(os.path.dirname(grid_cuda.SOURCE), "refine_pose.cu")
 NVCC_FLAGS = (
@@ -43,9 +48,23 @@ NVCC_FLAGS = (
 HOST_SOURCE = os.path.join(os.path.dirname(SOURCE), "refine_pose_host.cpp")
 GXX_FLAGS = ("-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
              "-pthread")
-# padded query points a launch takes: the counts the callers pad to
-# (256 * 2^k), as the header's takes_points
-POINTS = (256, 512, 1024, 2048, 4096, MAX_POINTS)
+# the kernel's one limit on N: one problem's rows and window sums stay
+# below 2^31 bytes, which the header's int32 offsets address (its
+# N_LIMIT; a 1 GiB scratch a problem). The plain version has none.
+N_LIMIT = 1 << 26
+
+
+def takes_points(n: int) -> bool:
+    """Whether a launch takes n padded query points: 256 * 2^k up to
+    N_LIMIT, the counts the callers pad to (the header's
+    takes_points)."""
+    return 256 <= n <= N_LIMIT and n & (n - 1) == 0
+
+
+def _check_points(n: int) -> None:
+    if not takes_points(n):
+        raise ValueError(f"N={n} padded points: the kernel takes 256 * 2^k "
+                         f"up to N_LIMIT={N_LIMIT} (its int32 offsets)")
 
 
 def build() -> dict:
@@ -89,11 +108,13 @@ def _cdll():
     lib = ctypes.CDLL(build()["path"])
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.refine_pose_launch.argtypes = [p, i, p, f, p, i, p, f, i, p, p, p,
-                                       p, i, i, i, i, p, p, p, p, p]
+                                       p, i, i, i, i, p, p, p, p, p, p]
     lib.refine_pose_launch.restype = ctypes.c_int
     lib.refine_pins_launch.argtypes = [p, i, p, p, f, p, p, p, p, i, i, i,
-                                       p, p, p, p, p]
+                                       p, p, p, p, p, p]
     lib.refine_pins_launch.restype = ctypes.c_int
+    lib.refine_pose_scratch_floats.argtypes = [i]
+    lib.refine_pose_scratch_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -103,12 +124,31 @@ def _library():
 
 @functools.lru_cache(maxsize=None)
 def _y0(device) -> torch.Tensor:
-    """The rsqrtss table on `device`, kept for every later launch: the
-    copy is waited for here, since launches on other streams (the
-    realtime mode's threads) read it."""
+    """The rsqrtss table (2 x 1024 entries) on `device`, kept for every
+    later launch: the copy is waited for here, since launches on other
+    streams (the realtime mode's threads) read it."""
     y0 = torch.from_numpy(rsqrtss_table()).to(device)
     torch.cuda.current_stream(device).synchronize()
     return y0
+
+
+def staged_rows(n: int) -> bool:
+    """Whether the kernel keeps the rows of an n-point refinement in the
+    global scratch buffer (the header's staged_rows; builds the
+    library)."""
+    return _cdll().refine_pose_scratch_floats(n) > 0
+
+
+def _scratch(B: int, N: int, dev) -> torch.Tensor | None:
+    """The staged rows' scratch of B problems of N points (None where the
+    rows fit in shared memory): float32, 16-byte aligned per problem."""
+    per = _cdll().refine_pose_scratch_floats(N)
+    return torch.empty(B * per, dtype=torch.float32, device=dev) if per \
+        else None
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def refine_cuda(stages, points, point_valid, init_pose,
@@ -117,16 +157,15 @@ def refine_cuda(stages, points, point_valid, init_pose,
     `stages` is one or two (grid (G, G) f32, origin (2,) f32, resolution
     float) triples of CUDA tensors (the second stage starts from the
     first one's pose); points (B, N, 2) f32, point_valid (B, N) bool,
-    init_pose (B, 3) f32, N in POINTS. Returns pose (B, 3), cov
-    (B, 3, 3), the first stage's probs (B, N) (the last two unwritten
-    without want_cov) and steps (B, 2) int32, the GN steps each stage
-    ran before it stopped (0 for a stage not run)."""
+    init_pose (B, 3) f32, N = 256 * 2^k (takes_points). Returns pose
+    (B, 3), cov (B, 3, 3), the first stage's probs (B, N) (the last two
+    unwritten without want_cov) and steps (B, 2) int32, the GN steps
+    each stage ran before it stopped (0 for a stage not run)."""
     dev = points.device
     if len(stages) not in (1, 2):
         raise ValueError("one or two stages")
     B, N, _ = points.shape
-    if N not in POINTS:
-        raise ValueError(f"N={N} padded points: the kernel takes {POINTS}")
+    _check_points(N)
     if dev.type != "cuda":
         raise ValueError(f"refine_cuda needs CUDA tensors, got {dev}")
     f32 = torch.float32
@@ -140,6 +179,7 @@ def refine_cuda(stages, points, point_valid, init_pose,
     cov = torch.empty((B, 3, 3), dtype=f32, device=dev)
     probs = torch.empty((B, N), dtype=f32, device=dev)
     steps = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    scratch = _scratch(B, N, dev)
     (g0, o0, r0), (g1, o1, r1) = stages[0], stages[-1]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -150,7 +190,7 @@ def refine_cuda(stages, points, point_valid, init_pose,
             point_valid.view(torch.uint8).data_ptr(), init_pose.data_ptr(),
             _y0(dev).data_ptr(), B, N, iterations, int(want_cov),
             pose.data_ptr(), cov.data_ptr(), probs.data_ptr(),
-            steps.data_ptr(), stream)
+            steps.data_ptr(), _ptr(scratch), stream)
     if rc != 0:
         raise RuntimeError(f"refine_pose kernel launch failed: CUDA error "
                            f"{rc}")
@@ -165,12 +205,11 @@ def refine_pins_cuda(grids, origins, ids, resolution, points, point_valid,
     pin_eval_batch refines its batch under jax.vmap. grids (M, G, G) f32,
     origins (M, 2) f32, ids (B,) int32, points (B, N, 2) f32,
     point_valid (B, N) bool, init_pose (B, 3) f32, all CUDA tensors, N
-    in POINTS. Returns pose (B, 3), cov (B, 3, 3), probs (B, N) and
-    steps (B, 2) int32 (the GN steps the stage ran, then 0)."""
+    as refine_cuda's. Returns pose (B, 3), cov (B, 3, 3), probs (B, N)
+    and steps (B, 2) int32 (the GN steps the stage ran, then 0)."""
     dev = points.device
     B, N, _ = points.shape
-    if N not in POINTS:
-        raise ValueError(f"N={N} padded points: the kernel takes {POINTS}")
+    _check_points(N)
     if dev.type != "cuda":
         raise ValueError(f"refine_pins_cuda needs CUDA tensors, got {dev}")
     f32 = torch.float32
@@ -185,6 +224,7 @@ def refine_pins_cuda(grids, origins, ids, resolution, points, point_valid,
     cov = torch.empty((B, 3, 3), dtype=f32, device=dev)
     probs = torch.empty((B, N), dtype=f32, device=dev)
     steps = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    scratch = _scratch(B, N, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _cdll().refine_pins_launch(
@@ -192,7 +232,8 @@ def refine_pins_cuda(grids, origins, ids, resolution, points, point_valid,
             ctypes.c_float(resolution), points.data_ptr(),
             point_valid.view(torch.uint8).data_ptr(), init_pose.data_ptr(),
             _y0(dev).data_ptr(), B, N, iterations, pose.data_ptr(),
-            cov.data_ptr(), probs.data_ptr(), steps.data_ptr(), stream)
+            cov.data_ptr(), probs.data_ptr(), steps.data_ptr(),
+            _ptr(scratch), stream)
     if rc != 0:
         raise RuntimeError(f"refine_pins kernel launch failed: CUDA error "
                            f"{rc}")

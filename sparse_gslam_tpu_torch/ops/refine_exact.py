@@ -19,13 +19,16 @@ JAX package by tests/test_torch_refine_exact.py:
   product, then an FMA per tap) and a row gemv that rounds each product
   and adds them in order; the Jacobian's two JVP terms are FMA chains
   from 0, each plus 0, summed;
-- 20/sqrt(n) is 20 * rsqrt(n): the x86 rsqrtss approximation (a table by
-  n up to MAX_POINTS, data/rsqrtss.hex) and two Newton steps with FMAs;
+- 20/sqrt(n) is 20 * rsqrt(n): the x86 rsqrtss approximation (`rsqrtss`:
+  a table of 2 x 1024 entries, data/rsqrtss.hex, scaled by the exponent)
+  and two Newton steps with FMAs;
 - J^T J: one FMA per term from 0, rows in order; J^T r: eight lane
   accumulators over the rows below a multiple of 8, a horizontal sum,
   then the remainder's FMA chain; sums of squares: windows of 32 over
   the array padded by half the missing length in front, again over the
-  windows' sums while more than 32 remain (N >= 1024), then in order;
+  windows' sums while more than 32 remain (N >= 1024; a third level from
+  N = 32768, as the dumped programs at N = 32768 and 65536 show), then in
+  order;
 - jnp.linalg.solve and eigh: LAPACK sgetrf, strsm (twice) and ssyevd,
   which jaxlib takes from SciPy (OpenBLAS 0.3.30, SkylakeX kernels),
   transcribed here as scalar float32 code with the FMAs and orders of
@@ -56,24 +59,37 @@ import numpy as np
 F32 = np.float32
 PMIN = F32(0.1)
 
-# padded query points the refinement takes: the rsqrtss table's length
-MAX_POINTS = 8192
-# rsqrtss(n) for n = 1..MAX_POINTS on x86 (bits >> 11, five hex digits
-# each; the approximation has 12 significant bits), as XLA's 20 / sqrt(n)
-# starts from it
+# x86 rsqrtss on [1, 4) (bits >> 11, five hex digits each; the
+# approximation has 12 significant bits): entry 1024 p + m is that of the
+# float with exponent p (0: [1, 2), 1: [2, 4)) and top 10 mantissa bits
+# m, the rest 0. On the x86 CPUs the package's reference runs were made on
+# (Intel, AVX-512), rsqrtss(x) depends on nothing else of x in [1, 4), and
+# rsqrtss(4 x) = rsqrtss(x) / 2 exactly (scripts/make_rsqrtss_table.py
+# writes the file; tests/test_torch_refine_exact.py holds the rule to the
+# instruction)
 _Y0_FILE = os.path.join(os.path.dirname(os.path.dirname(__file__)), "data",
                         "rsqrtss.hex")
 
 
 @functools.lru_cache(maxsize=None)
 def rsqrtss_table() -> np.ndarray:
-    """(MAX_POINTS,) float32: the x86 rsqrtss approximation of
-    n = 1..MAX_POINTS."""
+    """(2048,) float32: the x86 rsqrtss approximation on [1, 4), indexed
+    by exponent parity and the top 10 mantissa bits (`rsqrtss`)."""
     with open(_Y0_FILE) as fh:
         s = "".join(fh.read().split())
     bits = np.array([int(s[i:i + 5], 16) for i in range(0, len(s), 5)],
                     np.uint32) << np.uint32(11)
     return bits.view(np.float32)
+
+
+def rsqrtss(x):
+    """x86 rsqrtss of float32 x >= 2^-126 (normal; elementwise): the
+    table's entry for x scaled into [1, 4) by 4^-k, times 2^-k."""
+    u = np.asarray(x, F32).view(np.uint32).astype(np.int64)
+    e = (u >> 23 & 0xFF) - 127
+    p = e & 1
+    scale = np.exp2(-((e - p) // 2)).astype(F32)
+    return (rsqrtss_table()[1024 * p + (u >> 13 & 1023)] * scale)[()]
 
 
 def _double_rounding_risk(s):
@@ -112,7 +128,7 @@ def occupied_weight(n: int) -> np.float32:
     """20 / sqrt(max(n, 1)) as XLA computes it: rsqrtss, two Newton
     steps."""
     x = F32(max(n, 1))
-    y0 = rsqrtss_table()[int(x) - 1]
+    y0 = rsqrtss(x)
     e = fma32(y0, x * y0, F32(-1))
     y1 = fma32(F32(-0.5) * y0, e, y0)
     e = fma32(y1, x * y1, F32(-1))
@@ -822,9 +838,6 @@ def refine(grids, points, valid, init, iterations: int = 10,
     computes it."""
     pts = np.asarray(points, F32)
     valid = np.asarray(valid, bool)
-    if len(pts) > MAX_POINTS:
-        raise ValueError(f"N={len(pts)} padded points: the refinement takes "
-                         f"at most {MAX_POINTS}")
     n_valid = int(valid.sum())
     w_occ = occupied_weight(n_valid)
     wv = valid.astype(F32)

@@ -43,11 +43,11 @@ def initialize(coordinator_address: str | None = None,
     """torch.distributed.init_process_group with the JAX package's
     environment variables as fallbacks (SLAM_NUM_PROCESSES,
     SLAM_PROCESS_ID, SLAM_COORDINATOR, default localhost:12321). NCCL
-    where the process has a CUDA device, gloo otherwise, unless
-    `backend` names one. With one process it does nothing, as the JAX
-    package's does, unless `single_rank_group` asks for a group of one
-    rank (the collective path on one process). Returns whether a group
-    was started."""
+    on the process's card unless `backend` names another (gloo for
+    shards on the CPU); NCCL without a card raises. With one process it
+    does nothing, as the JAX package's does, unless `single_rank_group`
+    asks for a group of one rank (the collective path on one process).
+    Returns whether a group was started."""
     import torch.distributed as dist
 
     n = num_processes or int(os.environ.get("SLAM_NUM_PROCESSES", "1"))
@@ -59,13 +59,22 @@ def initialize(coordinator_address: str | None = None,
             or os.environ.get("SLAM_COORDINATOR", "localhost:12321"))
     rank = (process_id if process_id is not None
             else int(os.environ.get("SLAM_PROCESS_ID", "0")))
-    if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    backend = backend or "nccl"
     if backend == "nccl":
+        _cards('initialize(backend="gloo")')
         torch.cuda.set_device(rank % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=f"tcp://{addr}",
                             world_size=max(n, 1), rank=rank)
     return True
+
+
+def _cards(cpu_option: str) -> int:
+    """This process's card count; without a card, a RuntimeError naming
+    the call that runs on the CPU instead."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() == 0:
+        raise RuntimeError(f"no CUDA device: the shards run on the cards; "
+                           f"{cpu_option} runs them on the CPU")
+    return torch.cuda.device_count()
 
 
 def shutdown() -> None:
@@ -142,31 +151,28 @@ def block_mesh(n_shards: int | None = None, devices=None) -> BlockMesh:
     """The port's 1-D mesh of `n_shards` shards over all processes (the
     JAX package's block_mesh(n), a Mesh over the first n global
     devices). `devices` lists this process's shard devices explicitly
-    (e.g. [torch.device("cuda:0")] * 4). Otherwise each process takes
-    n_shards / world shards: in a group on its own card
-    (cuda:rank % cards) or the CPU; in one process on cards 0..k-1 in
-    turn (cuda:i % k) or the CPU. n_shards defaults to one per process
-    (one per card, or 1, in one process)."""
+    (e.g. [torch.device("cuda:0")] * 4, or ["cpu"] * 4 for shards on
+    the CPU). Otherwise each process takes n_shards / world shards: in a
+    group on its own card (cuda:rank % cards), in one process on cards
+    0..k-1 in turn (cuda:i % k); without a card it raises. n_shards
+    defaults to one per process (one per card in one process)."""
     import torch.distributed as dist
 
     group = dist.group.WORLD if dist.is_initialized() else None
     world = dist.get_world_size() if group is not None else 1
     rank = dist.get_rank() if group is not None else 0
-    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if devices is None:
+        cards = _cards('block_mesh(n, ["cpu"] * n)')
         if n_shards is None:
-            n_shards = world if group is not None else max(cards, 1)
+            n_shards = world if group is not None else cards
         if n_shards % world:
             raise ValueError(f"{n_shards} shards do not divide over "
                              f"{world} processes")
         per = n_shards // world
         if group is not None:
-            dev = (torch.device(f"cuda:{rank % cards}") if cards
-                   else torch.device("cpu"))
-            devices = [dev] * per
+            devices = [torch.device(f"cuda:{rank % cards}")] * per
         else:
-            devices = ([torch.device(f"cuda:{i % cards}") for i in range(per)]
-                       if cards else [torch.device("cpu")] * per)
+            devices = [torch.device(f"cuda:{i % cards}") for i in range(per)]
     devices = tuple(torch.device(d) for d in devices)
     if n_shards is not None and len(devices) * world != n_shards:
         raise ValueError(f"{len(devices)} devices x {world} processes is "
@@ -212,15 +218,16 @@ def scaling_report(g, phi: float, device_counts=(1, 2, 4, 8),
     """Measured pose-graph GN throughput of the sharded solver at several
     mesh sizes, with the block count fixed (n_blocks) so that the
     numeric work is the same at every size. `devices` is the pool the
-    shards take in turn (default: this process's cards, or the CPU);
-    shards beyond the pool share its devices, as on a one-card
-    machine. Returns {n_shards: GN iterations per second}."""
+    shards take in turn (default: this process's cards; without one it
+    raises, and devices=["cpu"] runs on the CPU); shards beyond the pool
+    share its devices, as on a one-card machine. Returns {n_shards: GN
+    iterations per second}."""
     from .dist_solver import optimize_partitioned
 
     if devices is None:
-        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        devices = ([torch.device(f"cuda:{i}") for i in range(cards)]
-                   or [torch.device("cpu")])
+        devices = [torch.device(f"cuda:{i}") for i in
+                   range(_cards('scaling_report(..., devices=["cpu"])'))]
+    devices = [torch.device(d) for d in devices]
     out = {}
     for n in device_counts:
         if n_blocks % n:

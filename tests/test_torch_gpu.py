@@ -129,16 +129,18 @@ def refine_world(G, res, n=512):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096, 8192])
+@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096, 8192, 16384,
+                               32768, 65536])
 def test_refine_kernel_matches_plain_on_cuda(n):
     """The refinement kernel (one launch per call) against its plain
-    version on the same CUDA tensors, torch.equal, at every padded point
-    count it takes (refine_cuda.POINTS): one stage at 0.1 m, two stages
-    (0.1 m dilated, then 0.05 m) and the pose alone."""
+    version on the same CUDA tensors, torch.equal, at padded point
+    counts it takes (refine_cuda.takes_points; above 8192 its rows in
+    global scratch, staged through shared memory): one stage at 0.1 m,
+    two stages (0.1 m dilated, then 0.05 m) and the pose alone."""
     need_card()
     from sparse_gslam_tpu_torch.ops import refine_cuda
 
-    assert n in refine_cuda.POINTS
+    assert refine_cuda.takes_points(n)
     dev = torch.device("cuda")
     g1, o1, pts, beams = refine_world(320, 0.1, n)
     g2, o2, _, _ = refine_world(576, 0.05, n)
@@ -326,7 +328,7 @@ def test_joint_solve_on_cuda_matches_cpu():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [256, 512])
+@pytest.mark.parametrize("n", [256, 512, 16384])
 def test_refine_pins_kernel_matches_batched_plain_on_cuda(n):
     """The refinement kernel's batched mode (one launch for a batch of
     pins, each against its own grid of a stack, in the arithmetic of the

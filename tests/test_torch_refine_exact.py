@@ -3,9 +3,10 @@
 - The plain version (sparse_gslam_tpu_torch/ops/refine_exact.py, behind
   ops/matching.py refine_pose / refine_pose_cov /
   refine_pose_cov_two_stage on the CPU) against the JAX package's
-  compiled programs on 64 seeded cases: a room and a corridor (whose
+  compiled programs on 72 seeded cases: a room and a corridor (whose
   J^T J is near-singular along the corridor), grids at 0.1 m and
-  0.05 m, every padded point count the callers use (N = 256 to 8192),
+  0.05 m, padded point counts from N = 256 to 65536 (the callers pad to
+  every 256 * 2^k; the kernel's rows leave shared memory above 8192),
   one stage, the two-stage variants (dilated score grid, then the raw
   grid or the 0.05 m high-res grid) and refine_pose alone.
   np.array_equal on pose, covariance and probabilities. XLA's J^T J and
@@ -16,12 +17,14 @@
   through csrc/refine_pose_host.cpp) on 10^5. Singular factors give NaN
   in both; NaN counts as equal to NaN.
 - The header's whole block program (the kernel's algorithm, threads run
-  in turn) against the plain version at every N, on
+  in turn) against the plain version at N = 256 to 32768 (above 8192
+  its staged variant, whose reductions take the rows chunk by chunk), on
   cases that end their stage at the first GN step (its trial rejected)
   and that run all ten (the plain version always runs ten), and its
   sinf/cosf against the C library on a dense sample of |theta| <= 4 pi.
-- The rsqrtss table against the CPU's own instruction (x86), and the
-  refusal of other point counts.
+- The rsqrtss rule (a table on [1, 4), scaled by the exponent) against
+  the CPU's own instruction (x86), and the refusal of other point
+  counts.
 """
 import ctypes
 import platform
@@ -153,7 +156,8 @@ def query(world, n_pad, seed):
 
 
 # (program, world, grid keys of the stages, N, seed): 40 cases at the
-# sim worlds' N, 24 at the larger ones (more beams, e.g. 60)
+# sim worlds' N, 30 at the larger ones (more beams, e.g. 60 or 180), and
+# one each at 32768 and 65536
 CASES = (
     [("cov", w, (res,), n, s) for w in WALLS for res in (0.1, 0.05)
      for n in (256, 512) for s in range(3)]
@@ -161,12 +165,14 @@ CASES = (
        for s in range(2)]
     + [("two", w, ("score", 0.1), 256, s) for w in WALLS for s in range(2)]
     + [("pose", w, (0.1,), 256, s) for w in WALLS for s in range(2)]
-    + [(prog, w, keys, n, s) for n in (1024, 2048, 4096, 8192)
+    + [(prog, w, keys, n, s) for n in (1024, 2048, 4096, 8192, 16384)
        for prog, w, keys, s in (
            ("cov", "room", (0.1,), 0), ("cov", "corridor", (0.05,), 1),
            ("two", "room", ("score", 0.05), 2),
            ("two", "corridor", ("score", 0.1), 3),
            ("pose", "room", (0.1,), 4), ("pose", "corridor", (0.05,), 5))]
+    + [("cov", "corridor", (0.05,), 32768, 1),
+       ("pose", "room", (0.1,), 65536, 4)]
 )
 
 
@@ -359,6 +365,8 @@ def header_refine(lib, stages, pts, valid, init, want_cov=True, rc=0):
     ("cov", "corridor", (0.05,), 4096, 1),
     ("two", "corridor", ("score", 0.1), 8192, 3),
     ("cov", "room", (0.05,), 8192, 0),
+    ("two", "room", ("score", 0.05), 16384, 2),
+    ("cov", "corridor", (0.05,), 32768, 1),
 ])
 def test_header_block_program_bit_equal_to_plain(worlds, host_lib, program,
                                                  world, keys, n, seed):
@@ -408,6 +416,8 @@ STOP_CASES = [
     ("corridor", 0.05, 1024, 0, 6, 1), ("room", 0.1, 4096, 22, 6, 1),
     ("room", 0.1, 256, 4, 6, 10), ("corridor", 0.05, 256, 5, 6, 10),
     ("room", 0.1, 4096, 1, 6, 10), ("corridor", 0.05, 4096, 1, 6, 10),
+    ("room", 0.1, 16384, 3, 3, 1), ("room", 0.1, 16384, 1, 6, 10),
+    ("corridor", 0.05, 32768, 27, 3, 1), ("corridor", 0.05, 32768, 1, 6, 10),
 ]
 
 
@@ -432,32 +442,27 @@ def test_header_early_stop_bit_equal_to_all_steps(worlds, host_lib, world,
         np.testing.assert_array_equal(got[0], init)
 
 
-@pytest.mark.parametrize("n", [32, 128, 224, 288, 384, 5000, 16384])
+@pytest.mark.parametrize("n", [32, 128, 224, 288, 384, 5000, 12288])
 def test_kernel_refuses_other_point_counts(worlds, host_lib, n):
     """The launcher, its host build and the wrapper take the counts the
-    callers pad to, 256 * 2^k up to 8192 (each runs in the tests
-    above), and no other."""
+    callers pad to, 256 * 2^k (up to the int32 offsets' N_LIMIT; the
+    tests above run them to 65536), and no other."""
     stages = _stages(worlds, "room", (0.1,))
     pts = np.zeros((n, 2), F32)
     header_refine(host_lib, stages, pts, np.ones(n, bool),
                   np.zeros(3, F32), rc=1)
-    assert refine_cuda.POINTS == (256, 512, 1024, 2048, 4096, 8192)
+    assert not refine_cuda.takes_points(n)
+    assert all(refine_cuda.takes_points(256 << k) for k in range(19))
+    big = 2 * refine_cuda.N_LIMIT  # refused before any array is read
+    assert not refine_cuda.takes_points(big)
+    grid = (None, 0, None, 0.0)
+    assert host_lib.refine_pose_host(*grid, *grid, 1, *[None] * 4, 1, big,
+                                     10, 1, *[None] * 4) == 1
     with pytest.raises(ValueError, match=f"N={n} padded points"):
         refine_cuda.refine_cuda(
             [(torch.tensor(g), torch.tensor(o), r) for g, o, r in stages],
             torch.zeros(1, n, 2), torch.ones(1, n, dtype=torch.bool),
             torch.zeros(1, 3))
-
-
-@pytest.mark.parametrize("n", [8193, 16384])
-def test_plain_refuses_more_than_max_points(worlds, n):
-    """Above 8192 padded points (no configuration pads so far) the plain
-    version raises, naming N and the limit, as the kernel's wrapper
-    does."""
-    stages = _stages(worlds, "room", (0.1,))
-    with pytest.raises(ValueError, match=f"N={n} padded points.*8192"):
-        port_refine("cov", stages, np.zeros((n, 2), F32), np.ones(n, bool),
-                    np.zeros(3, F32))
 
 
 def test_header_sincosf_matches_libm(host_lib):
@@ -470,32 +475,42 @@ def test_header_sincosf_matches_libm(host_lib):
 
 
 def test_rsqrtss_table_is_the_cpus(tmp_path):
-    """The table is x86 rsqrtss of n = 1..8192 (checked where the CPU is
-    one), and occupied_weight refines it as XLA does."""
+    """rsqrtss(x) is the table's entry for x scaled into [1, 4), times
+    the scale's square root: checked against x86 rsqrtss of every n <=
+    2^17 and of every 61st float32 in [1, 4) (where the CPU is one); and
+    occupied_weight refines it as XLA does."""
     table = rx.rsqrtss_table()
-    assert table.shape == (8192,) and table.dtype == np.float32
-    assert len(table) == rx.MAX_POINTS == refine_cuda.POINTS[-1]
-    rel = np.abs(table * np.sqrt(np.arange(1, 8193)) - 1)
+    assert table.shape == (2048,) and table.dtype == np.float32
+    n = np.arange(1, 2**17 + 1)
+    got = rx.rsqrtss(n.astype(F32))
+    rel = np.abs(got * np.sqrt(n) - 1)
     assert rel.max() < 1.5 * 2.0**-12
     gcc = shutil.which("gcc")
     if platform.machine() not in ("x86_64", "AMD64") or gcc is None:
         pytest.skip("rsqrtss is an x86 instruction")
+    lo, hi = (int(np.float32(v).view(np.uint32)) for v in (1.0, 4.0))
     src = tmp_path / "rsq.c"
     src.write_text(
         "#include <immintrin.h>\n#include <stdio.h>\n#include <string.h>\n"
-        "int main(void){for(int n=1;n<=8192;n++){float y=_mm_cvtss_f32("
-        "_mm_rsqrt_ss(_mm_set_ss((float)n)));unsigned u;memcpy(&u,&y,4);"
-        "printf(\"%u\\n\",u);}return 0;}\n")
+        "static unsigned r(float x){float y=_mm_cvtss_f32(_mm_rsqrt_ss("
+        "_mm_set_ss(x)));unsigned u;memcpy(&u,&y,4);return u;}\n"
+        "int main(void){for(int n=1;n<=131072;n++)"
+        "printf(\"%u\\n\",r((float)n));"
+        f"for(unsigned u={lo}u;u<{hi}u;u+=61u){{float x;memcpy(&x,&u,4);"
+        "printf(\"%u\\n\",r(x));}return 0;}\n")
     exe = tmp_path / "rsq"
     subprocess.run([gcc, "-O2", "-o", str(exe), str(src)], check=True)
-    out = subprocess.run([str(exe)], check=True, capture_output=True,
-                         text=True).stdout.split()
-    np.testing.assert_array_equal(table.view(np.uint32),
-                                  np.array(out, np.uint32))
+    out = np.array(subprocess.run([str(exe)], check=True, capture_output=True,
+                                  text=True).stdout.split(), np.uint32)
+    np.testing.assert_array_equal(got.view(np.uint32), out[:len(n)])
+    floats = np.arange(lo, hi, 61, dtype=np.uint32).view(np.float32)
+    dense = rx.rsqrtss(floats)
+    np.testing.assert_array_equal(dense.view(np.uint32), out[len(n):])
     assert rx.occupied_weight(0) == rx.occupied_weight(1) == F32(20)
 
 
-@pytest.mark.parametrize("K", [259, 515, 1027, 2051, 4099, 8195])
+@pytest.mark.parametrize("K", [259, 515, 1027, 2051, 4099, 8195, 16387,
+                               32771])
 def test_gram_and_gemv_bit_equal_to_xla(K):
     """XLA's J^T J and J^T r with J^T laid out (3, K) as in the compiled
     refinement, K = N + 3 rows, against the plain version's chains: one

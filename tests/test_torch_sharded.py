@@ -20,7 +20,10 @@
   same meshes;
 - graft_entry.dryrun_multichip and entry();
 - multihost: the one-process no-op, the mesh layouts, model_efficiency
-  against the JAX package's formula.
+  against the JAX package's formula;
+- the card as the default: without a card (torch.cuda made to report
+  none), graft_entry.entry(), dryrun_multichip(2), block_mesh(2),
+  scaling_report and an NCCL initialize raise, naming the CPU option.
 
 Tolerances: sharded against the JAX package's sharded solve 1e-6 and
 against its blocked solve 1e-8 (tests/test_dist_solver.py's); against the
@@ -288,6 +291,30 @@ def test_multihost_single_process_and_mesh_layout(monkeypatch):
     assert torch.equal(mesh.from_previous_rank(parts[2]), torch.zeros(3))
     with pytest.raises(ValueError):
         multihost.block_mesh(4, ["cpu"] * 3)
+
+
+NO_CARD_CALLS = {
+    "entry": (lambda: graft_entry.entry(), 'device="cpu"'),
+    "dryrun_multichip": (lambda: graft_entry.dryrun_multichip(2),
+                         'device="cpu"'),
+    "block_mesh": (lambda: multihost.block_mesh(2), r'\["cpu"\] \* n'),
+    "scaling_report": (lambda: multihost.scaling_report(
+        None, 1.0, device_counts=(1,)), r'devices=\["cpu"\]'),
+    "initialize_nccl": (lambda: multihost.initialize(
+        "localhost:1", 2, 0), r'backend="gloo"'),
+}
+
+
+@pytest.mark.parametrize("name", list(NO_CARD_CALLS))
+def test_entry_points_raise_without_a_card(name, monkeypatch):
+    """The entry points run on the card unless the caller names the CPU:
+    on a host without one they raise, naming how to ask for the CPU,
+    and build nothing on the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    call, cpu_option = NO_CARD_CALLS[name]
+    with pytest.raises(RuntimeError, match=cpu_option):
+        call()
 
 
 def test_model_efficiency_matches_jax_formula():
