@@ -127,6 +127,20 @@ their failures fail it after the kernels line):
    512 and 2048 padded poses), against the same solve on the CPU
    (JOINT_ATOL, JOINT_CHI2_RTOL, the same LM iterations); ms per
    iteration and per solve.
+14a. library -- the JAX package's functions the port added last, on the
+   card (LIBRARY_*): (a) sim-office's first 40 keyframes inserted one at
+   a time into one G = 320 grid with insert_range_data, every launch
+   torch.equal to the plain version on the same inputs (its launches
+   under launches_by_path["library"] of the kernels line); (b)
+   match_submap, match_submaps_batched, match_candidates_pruned_batched,
+   pin_bounds_batch and score_pose on the fused phase's inputs, card
+   against host CPU; (c) the branch-and-bound matcher
+   (correlative_match_many_native, 8 host threads) against
+   match_candidates_pruned on the card: the same candidate and optimum
+   cell, each one's ms on a line of its own with nvidia-smi's name and
+   power limit; (d) every sim world's log through the C++ and the
+   Python CARMEN parsers, every frame equal. Its problems, and a phase
+   longer than LIBRARY_BUDGET_S, fail the script after the kernels line.
 15. killian -- the full runner on sim-killian (2626 frames, a pose graph
    padded to 2048) on cuda, as phase 6, with every pose-graph solve
    recorded: from dist_solver_min_poses padded poses up each must take
@@ -3169,6 +3183,313 @@ def phase_joint_solver():
     return rows
 
 
+# the library phase: the JAX package's functions the port added last,
+# on the card. sim-office's first LIBRARY_KEYFRAMES keyframes go into
+# one G = 320 grid at 0.1 m (the backend's submap size) one at a time;
+# the matchers run on the fused phase's inputs (fused_inputs: 18
+# candidates at G = 320, a query of 400 points, the pin batch), with
+# match_submaps_batched on the last LIBRARY_BATCH candidates (one
+# chunk). Card against the host CPU at the tolerances the CPU tests
+# state (tests/test_torch_gpu.py, tests/test_torch_batched_match.py):
+# scores 1e-5 (cuFFT against pocketfft/MKL), poses and candidates
+# equal, best_candidate_with_cov's covariance rtol 1e-4 and atol
+# 2e-6 (1 + |t|^2) at match translation t, window_cov's covariance, the
+# pin bounds and score_pose equal. The branch-and-bound matcher against
+# the pruned matcher: the same candidate and optimum cell (offset and
+# rotation index), scores within LIBRARY_BNB_SCORE_ATOL (float32 sums in
+# another order against the FFT).
+LIBRARY_KEYFRAMES = 40
+LIBRARY_G = 320
+LIBRARY_BATCH = 4
+LIBRARY_SCORE_ATOL = 1e-5
+LIBRARY_COV_RTOL = 1e-4
+LIBRARY_BNB_SCORE_ATOL = 1e-4
+LIBRARY_BUDGET_S = 30.0
+
+
+def library_cov_atol(pose):
+    return 2e-6 * (1.0 + float(pose[0]) ** 2 + float(pose[1]) ** 2)
+
+
+def office_keyframes(n, device):
+    """sim-office's first n keyframes: the frontend-only system on
+    `device` over the log's frames until it holds n; their range stores
+    and estimates (n, 3)."""
+    from sparse_gslam_tpu_torch.io.providers import CarmenLogDataProvider
+    from sparse_gslam_tpu_torch.utils.config import load_dataset_config
+
+    system = SlamSystem(*load_dataset_config(DATASET),
+                        enable_backend=False, device=device)
+    for fr in CarmenLogDataProvider(
+            os.path.join(DATASET, "sim-office.log")).frames():
+        system.process_frame(fr)
+        if len(system.frontend.keyframes) >= n:
+            break
+    kfs = system.frontend.keyframes[:n]
+    return [kf.data for kf in kfs], system.frontend.estimates()[:n]
+
+
+def library_insert(stores, est):
+    """(a) insert_range_data: the keyframes one at a time into one grid
+    on the card, every launch held torch.equal against the plain version
+    on the same inputs; the launches counted from 0 around the loop."""
+    spec = grid_mod.GridSpec(LIBRARY_G, 0.1)
+    origin = torch.tensor(est[:, :2].mean(0) - spec.extent / 2,
+                          dtype=torch.float32, device="cuda")
+    probs = torch.zeros((LIBRARY_G, LIBRARY_G), dtype=torch.float32,
+                        device="cuda")
+    calls = []
+    real = grid_mod.insert_rays
+
+    def recording(*args):
+        out = real(*args)
+        calls.append((args, out))
+        return out
+
+    ms = []
+    grid_cuda.reset_launches(grid_cuda.insert_rays_cuda)
+    grid_mod.insert_rays = recording
+    try:
+        for rd, pose in zip(stores, est):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            probs = grid_mod.insert_range_data(probs, origin, rd, pose, spec)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        grid_mod.insert_rays = real
+    launches = grid_cuda.insert_rays_cuda.launches
+    unequal = [k for k, (args, out) in enumerate(calls)
+               if not torch.equal(out, insert_rays_plain(*args))]
+    err = max((float((out - insert_rays_plain(*args)).abs().max())
+               for args, out in calls), default=0.0)
+    problems = []
+    if launches != len(calls) or launches != sum(
+            1 for rd in stores if len(rd.meta) and len(rd.points)):
+        problems.append(f"library: {launches} insertion launches for "
+                        f"{len(calls)} insertions")
+    if unequal:
+        problems.append(f"library: insert_range_data launches {unequal} "
+                        "differ from the plain version")
+    if not launches:
+        problems.append("library: insert_range_data launched no kernel")
+    known = int((probs > 0).sum())
+    if known < 1000:
+        problems.append(f"library: the incremental grid knows {known} cells")
+    return {"keyframes": len(stores), "launches": launches,
+            "scans": [len(rd.meta) for rd in stores],
+            "s_pad": sorted({int(a[2].shape[0]) for a, _ in calls}),
+            "b": sorted({int(a[3].shape[1]) for a, _ in calls}),
+            "max_abs_err": err, "known_cells": known,
+            "ms_per_keyframe": float(np.mean(ms)) if ms else None,
+            "ms_per_keyframe_median": float(np.median(ms)) if ms else None,
+            "ms_per_keyframe_max": max(ms, default=None)}, problems
+
+
+def library_matcher_calls(inp, device):
+    """(b) match_submap, match_submaps_batched,
+    match_candidates_pruned_batched, pin_bounds_batch and score_pose on
+    `device`, on the fused phase's inputs. Returns host results and the
+    callables."""
+    dev = torch.device(device)
+    spec = matching_mod.search_spec(5.0, 1.0, 10.0, 0.1)
+    probs = torch.from_numpy(inp["grids"]).to(dev)
+    pyr = [precompute_pyramid(p, 5) for p in probs]
+    sg = [p[0] for p in pyr]
+    pooled = [p[4] for p in pyr]
+    org = torch.from_numpy(inp["origin"]).to(dev)
+    C = FUSED_CANDIDATES
+    th0 = inp["th0"]
+    q = inp["query"]
+    last = C - LIBRARY_BATCH
+    pins = {k: torch.from_numpy(np.asarray(v)).to(dev)
+            for k, v in inp["pins"].items()}
+    stack = torch.stack(pooled)
+    pts = np.zeros((512, 2), np.float32)
+    pts[:len(q)] = q
+    pts_d = torch.from_numpy(pts).to(dev)
+    valid = torch.from_numpy(np.arange(512) < len(q)).to(dev)
+    fns = {
+        "match_submap": lambda: matching_mod.match_submap(
+            sg[C - 1], org, 0.1, q, th0[C - 1], spec),
+        "match_submaps_batched": lambda: matching_mod.match_submaps_batched(
+            sg[last:C], [org] * LIBRARY_BATCH, th0[last:C], q, spec,
+            chunk=LIBRARY_BATCH),
+        "match_candidates_pruned_batched":
+            lambda: matching_mod.match_candidates_pruned_batched(
+                sg[:C], pooled[:C], [org] * C, th0, q, spec, 0.7, 16),
+        "pin_bounds_batch": lambda: matching_mod.pin_bounds_batch(
+            stack, pins["ids"], pins["orgs"], pins["pts"], pins["val"],
+            pins["ths"], 0.1, 8, extra=True).cpu().numpy(),
+    }
+    out = {k: fn() for k, fn in fns.items()}
+    pose = torch.from_numpy(out["match_submap"][1].astype(np.float32))
+    fns["score_pose"] = lambda: float(matching_mod.score_pose(
+        sg[C - 1], org, pts_d, valid, pose.to(dev), 0.1, LIBRARY_G))
+    out["score_pose"] = fns["score_pose"]()
+    return out, fns
+
+
+def library_matcher_problems(card, host):
+    problems = []
+    pairs = [("match_submap", card["match_submap"], host["match_submap"])]
+    pairs += [(f"match_submaps_batched[{k}]", a, b) for k, (a, b) in
+              enumerate(zip(card["match_submaps_batched"],
+                            host["match_submaps_batched"]))]
+    for name, a, b in pairs:
+        if (abs(a[0] - b[0]) > LIBRARY_SCORE_ATOL
+                or not np.array_equal(a[1], b[1])
+                or not np.allclose(a[2], b[2], rtol=LIBRARY_COV_RTOL,
+                                   atol=library_cov_atol(a[1]))):
+            problems.append(f"library: {name} card {a[0]} {a[1]} != CPU "
+                            f"{b[0]} {b[1]} (or covariance)")
+    a, b = (card["match_candidates_pruned_batched"],
+            host["match_candidates_pruned_batched"])
+    if a[0] != b[0] or (a[0] is not None and (
+            abs(a[1] - b[1]) > LIBRARY_SCORE_ATOL
+            or not np.array_equal(a[2], b[2])
+            or not np.array_equal(a[3], b[3]))):
+        problems.append(f"library: match_candidates_pruned_batched card "
+                        f"{a[:3]} != CPU {b[:3]}")
+    if a[0] is None:
+        problems.append("library: the pruned batched matcher found no match")
+    if not np.array_equal(card["pin_bounds_batch"], host["pin_bounds_batch"]):
+        problems.append("library: pin_bounds_batch differs card vs CPU")
+    if card["score_pose"] != host["score_pose"]:
+        problems.append(f"library: score_pose card {card['score_pose']} != "
+                        f"CPU {host['score_pose']}")
+    return problems
+
+
+def library_native(inp):
+    """(c) correlative_match_many_native (8 threads on the host) against
+    match_candidates_pruned on the card over the fused phase's 18
+    candidates: the same candidate and optimum cell; ms of each."""
+    from sparse_gslam_tpu_torch.io.native import correlative_match_many_native
+
+    dev = torch.device("cuda")
+    spec = matching_mod.search_spec(5.0, 1.0, 10.0, 0.1)
+    C = FUSED_CANDIDATES
+    pyr = [precompute_pyramid(torch.from_numpy(g).to(dev), 5)
+           for g in inp["grids"][:C]]
+    sg, pooled = [p[0] for p in pyr], [p[4] for p in pyr]
+    org = torch.from_numpy(inp["origin"]).to(dev)
+    th0 = inp["th0"]
+
+    def native():
+        return correlative_match_many_native(
+            inp["grids"][:C], np.tile(inp["origin"], (C, 1)), 0.1,
+            inp["query"], th0, spec.angular_step, spec.n_angular,
+            spec.n_linear, 5, 0.7, n_threads=8)
+
+    def pruned():
+        return matching_mod.match_candidates_pruned(
+            sg, pooled, [org] * C, th0, inp["query"], spec, 0.7, 16)
+
+    nat, pru = native(), pruned()
+    native_ms = min(wall_ms(native, reps=1) for _ in range(3))
+    pruned_ms = min(wall_ms(pruned, reps=1) for _ in range(3))
+    problems = []
+    row = {"native_bnb_ms": native_ms, "pruned_card_ms": pruned_ms,
+           "native": None, "pruned": None}
+    if nat is None or pru[0] is None:
+        problems.append(f"library: no match (native {nat}, pruned {pru[:2]})")
+        return row, problems
+    k, n_score, n_pose = nat
+    row["native"] = {"candidate": k, "score": n_score,
+                     "pose": n_pose.tolist()}
+    row["pruned"] = {"candidate": pru[0], "score": pru[1],
+                     "pose": pru[2].tolist()}
+
+    def cell(pose, t0):
+        return (int(round(pose[0] / 0.1)), int(round(pose[1] / 0.1)),
+                int(round((pose[2] - t0) / spec.angular_step)))
+
+    row["native_cell"] = cell(n_pose, th0[k])
+    row["pruned_cell"] = cell(pru[2], th0[pru[0]])
+    row["score_diff"] = abs(n_score - pru[1])
+    if k != pru[0] or row["native_cell"] != row["pruned_cell"]:
+        problems.append(f"library: branch-and-bound optimum {k} "
+                        f"{row['native_cell']} != pruned {pru[0]} "
+                        f"{row['pruned_cell']}")
+    if row["score_diff"] > LIBRARY_BNB_SCORE_ATOL:
+        problems.append(f"library: branch-and-bound score {n_score} vs "
+                        f"pruned {pru[1]}")
+    return row, problems
+
+
+def library_parsers():
+    """(d) every sim world's log through the C++ parser (the provider's
+    default) and the Python parser: every frame equal."""
+    from sparse_gslam_tpu_torch.io.providers import CarmenLogDataProvider
+
+    rows, problems = {}, []
+    for d in sorted(os.listdir(os.path.join(REPO, "datasets"))):
+        log = os.path.join(REPO, "datasets", d, f"{d}.log")
+        if not (d.startswith("sim-") and os.path.exists(log)):
+            continue
+        t0 = time.perf_counter()
+        nat = list(CarmenLogDataProvider(log).frames())
+        t1 = time.perf_counter()
+        py = list(CarmenLogDataProvider(log, use_native=False).frames())
+        t2 = time.perf_counter()
+        same = len(nat) == len(py) and all(
+            a.time == b.time and np.array_equal(a.pose, b.pose)
+            and np.array_equal(a.ranges, b.ranges) for a, b in zip(nat, py))
+        rows[d] = {"frames": len(nat), "equal": same,
+                   "native_ms": (t1 - t0) * 1e3, "python_ms": (t2 - t1) * 1e3}
+        if not same or not nat:
+            problems.append(f"library: {d}.log parses differently in C++ "
+                            "and Python")
+    if len(rows) != 4:
+        problems.append(f"library: {len(rows)} sim worlds' logs, not 4")
+    return rows, problems
+
+
+def phase_library(smi):
+    """The library phase (a)-(d) (see LIBRARY_*); its problems fail the
+    script after the kernels line. Returns the insertion launches and
+    the problems."""
+    t0 = time.perf_counter()
+    stores, est = office_keyframes(LIBRARY_KEYFRAMES, "cuda")
+    t_kf = time.perf_counter() - t0
+    insert, problems = library_insert(stores, est)
+    inp = fused_inputs()
+    card, fns = library_matcher_calls(inp, "cuda")
+    host, _ = library_matcher_calls(inp, "cpu")
+    problems += library_matcher_problems(card, host)
+    ms = {k: wall_ms(fn, reps=2) for k, fn in fns.items()}
+    native, failed = library_native(inp)
+    problems += failed
+    emit({"phase": "library_native", "nvidia_smi": smi,
+          "candidates": FUSED_CANDIDATES, "points": FUSED_POINTS,
+          "native_threads": 8, **native})
+    parsers, failed = library_parsers()
+    problems += failed
+    seconds = time.perf_counter() - t0
+    if seconds > LIBRARY_BUDGET_S:
+        problems.append(f"library: {seconds:.1f} s, above its "
+                        f"{LIBRARY_BUDGET_S} s")
+    q = card["match_candidates_pruned_batched"]
+    emit({"phase": "library", "keyframe_s": t_kf, "insert": insert,
+          "card_ms": ms,
+          "match_submap": {"score": card["match_submap"][0],
+                           "pose": card["match_submap"][1].tolist()},
+          "pruned_batched": {"candidate": q[0], "score": q[1],
+                             "pose": None if q[2] is None
+                             else q[2].tolist()},
+          "pin_bounds": card["pin_bounds_batch"].tolist(),
+          "score_pose": card["score_pose"], "parsers": parsers,
+          "tolerances": {"score_atol": LIBRARY_SCORE_ATOL,
+                         "cov_rtol": LIBRARY_COV_RTOL,
+                         "cov_atol": "2e-6 (1 + |t|^2)",
+                         "bnb_score_atol": LIBRARY_BNB_SCORE_ATOL,
+                         "insertions, poses, pin bounds, score_pose, "
+                         "window covariance": "equal"},
+          "seconds": seconds, "problems": problems})
+    return {"launches": insert["launches"], "problems": problems}
+
+
 def pins_kernel_line(runs):
     """The kernels line's entry for the refinement kernel's batched mode
     (refine_pins_launch: the device pin batches, one launch per batch),
@@ -3272,6 +3593,8 @@ def main() -> int:
     timed("blocked", phase_blocked)
     checks += timed("mesh", phase_mesh)
     timed("joint_solver", phase_joint_solver)
+    library = timed("library", phase_library, smi)
+    checks += library["problems"]
     runs["killian"] = timed("killian", phase_full, "sim-killian", "killian",
                             args.out)
     killian_ms = runs["killian"].pop("frontend_ms")
@@ -3311,8 +3634,10 @@ def main() -> int:
         "route": "cuda",
         "source": "sparse_gslam_tpu_torch/csrc/insert_rays.cu",
         "replaces": "sparse_gslam_tpu/ops/grid_pallas.py:202",
-        "launches": launches + sum(v["launches"] for v in runs.values()),
-        "launches_by_path": {"frontend_only": launches, **{
+        "launches": launches + library["launches"]
+        + sum(v["launches"] for v in runs.values()),
+        "launches_by_path": {"frontend_only": launches,
+                             "library": library["launches"], **{
             k: v["launches"] for k, v in runs.items()}},
         "timed_launches": killian["launches"],
         "max_abs_err": max(err, row["max_abs_err"]),

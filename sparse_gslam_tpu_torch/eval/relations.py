@@ -106,3 +106,21 @@ def evaluate_files(result_path: str, relations_path: str) -> ATEResult:
     times, poses = load_result(result_path)
     t1, t2, gt = load_relations(relations_path)
     return evaluate(times, poses, t1, t2, gt)
+
+
+def evaluate_per_separation(result_path: str, relations_path: str):
+    """Mean translational error grouped by relation time separation
+    (the sim worlds ship relations at 1/5/15/40 s; eval/simulate.py
+    make_relations). Localizes WHERE drift lives: short separations
+    measure intra-keyframe dead reckoning + adjacent-chain noise,
+    long ones accumulated drift between absolute anchors. Returns
+    {separation_s: (mean_trans_err, n)} sorted by separation."""
+    times, poses = load_result(result_path)
+    t1, t2, gt = load_relations(relations_path)
+    res = evaluate(times, poses, t1, t2, gt)
+    seps = np.round(t2 - t1).astype(int)
+    out = {}
+    for sep in np.unique(seps):
+        m = seps == sep
+        out[int(sep)] = (float(res.trans_errors[m].mean()), int(m.sum()))
+    return out

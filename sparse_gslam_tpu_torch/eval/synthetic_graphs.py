@@ -8,6 +8,7 @@ closures between revisited segments.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..interop import pose_graph_from_numpy
 from ..utils import se2
@@ -92,3 +93,10 @@ def to_pose_graph(fields: dict, device="cuda", dtype=None):
         return g
     return g._replace(**{k: v.to(dtype) for k, v in g._asdict().items()
                          if v.is_floating_point()})
+
+
+def graph_to_arrays(g) -> dict:
+    """Dump a PoseGraphData (tensors on any device, or arrays) to plain
+    numpy (for the native baseline)."""
+    return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+            else np.asarray(v) for k, v in g._asdict().items()}

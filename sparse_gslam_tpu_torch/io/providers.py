@@ -12,8 +12,9 @@ formats:
   usc       USC SAL format
   drone_bag rosbag v2 with two Crazyflie RawData telemetry streams
 
-CARMEN logs go through the Python parser (the JAX package's native
-parser is a speed path with the same output).
+CARMEN logs go through the C++ parser (io/native.py
+parse_carmen_native) by default, as in the JAX package; use_native=False
+selects the Python parser, which gives the same frames.
 """
 from __future__ import annotations
 
@@ -39,10 +40,25 @@ class CarmenLogDataProvider(DataProvider):
 
     FLASER num_readings r_1..r_n x y theta odom_x odom_y odom_theta
     time host logger_time -- odometry pose is fields n+4..n+6; frames
-    are sorted by timestamp before replay.
+    are sorted by timestamp before replay (a stable sort). use_native
+    (the default) parses with the C++ loader, csrc/carmen_parser.cpp,
+    and raises if it cannot be built or fails; use_native=False parses
+    in Python.
     """
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, use_native: bool = True):
+        self._native = None
+        if use_native:
+            from .native import parse_carmen_native
+
+            try:
+                self._native = parse_carmen_native(path)
+            except (OSError, RuntimeError) as e:
+                raise RuntimeError(
+                    f"the C++ CARMEN parser failed on {path} ({e}); "
+                    "CarmenLogDataProvider(path, use_native=False) parses "
+                    "in Python") from e
+            return
         data = []
         with open(path) as f:
             for line in f:
@@ -60,6 +76,14 @@ class CarmenLogDataProvider(DataProvider):
         self._data = data
 
     def frames(self) -> Iterator[Frame]:
+        if self._native is not None:
+            times, poses, ranges, offsets = self._native
+            for i in range(len(times)):
+                yield Frame(
+                    float(times[i]), poses[i],
+                    ranges[offsets[i] : offsets[i + 1]],
+                )
+            return
         for t, p, r in self._data:
             yield Frame(t, p, r)
 

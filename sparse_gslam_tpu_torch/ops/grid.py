@@ -29,6 +29,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import se2
+
 PMIN = 0.1
 PMAX = 0.9
 
@@ -208,17 +210,12 @@ def insert_rays(
     )
 
 
-def pack_scans(range_data):
-    """Host prep shared by every grid build: scan origins, endpoints and
-    kinds packed into bucketed shapes -- S_pad a power of two >= 32,
-    B a power of two >= 4 (grid.py:183-207 of the JAX package).
-
-    Returns (origins_pad (S_pad,2) f32, scan_pts (S_pad,B,2) f32,
-    scan_kind (S_pad,B) int8, origins (S,2) f64)."""
-    pts = range_data.points
-    metas = range_data.meta
+def _pack(points, metas, origins, s_min: int):
+    """Scan origins, endpoints and kinds packed into bucketed shapes:
+    S_pad a power of two >= s_min, B a power of two >= 4. Returns
+    (origins_pad (S_pad,2) f32, scan_pts (S_pad,B,2) f32, scan_kind
+    (S_pad,B) int8)."""
     S = len(metas)
-    origins = np.stack([m[2] for m in metas])
     counts = []
     prev = 0
     for re_, e_, _ in metas:
@@ -227,7 +224,7 @@ def pack_scans(range_data):
     B = 4
     while B < max(max(counts), 1):
         B *= 2
-    S_pad = 32
+    S_pad = s_min
     while S_pad < S:
         S_pad *= 2
     scan_pts = np.zeros((S_pad, B, 2), np.float32)
@@ -236,13 +233,25 @@ def pack_scans(range_data):
     for s, (re_, e_, _) in enumerate(metas):
         n_hit = re_ - i
         n_all = e_ - i
-        scan_pts[s, :n_all] = pts[i:e_]
+        scan_pts[s, :n_all] = points[i:e_]
         scan_kind[s, :n_hit] = 1
         scan_kind[s, n_hit:n_all] = 2
         i = e_
     origins_pad = np.zeros((S_pad, 2), np.float32)
     origins_pad[:S] = origins
-    return origins_pad, scan_pts, scan_kind, origins
+    return origins_pad, scan_pts, scan_kind
+
+
+def pack_scans(range_data):
+    """Host prep shared by every grid build: scan origins, endpoints and
+    kinds packed into bucketed shapes -- S_pad a power of two >= 32,
+    B a power of two >= 4 (grid.py:183-207 of the JAX package).
+
+    Returns (origins_pad (S_pad,2) f32, scan_pts (S_pad,B,2) f32,
+    scan_kind (S_pad,B) int8, origins (S,2) f64)."""
+    origins = np.stack([m[2] for m in range_data.meta])
+    return (*_pack(range_data.points, range_data.meta, origins, 32),
+            origins)
 
 
 def submap_insert_args(
@@ -269,6 +278,53 @@ def submap_insert_args(
         torch.zeros((spec.size, spec.size), dtype=torch.float32,
                     device=dev),
         origin,
+        torch.from_numpy(origins_pad).to(dev),
+        torch.from_numpy(scan_pts).to(dev),
+        torch.from_numpy(scan_kind).to(dev),
+        torch.tensor([hit_p, miss_p], dtype=torch.float32, device=dev),
+        spec.resolution,
+        n_steps,
+        spec.size,
+    )
+
+
+def insert_range_data(
+    probs,  # (size, size) existing grid (tensor)
+    grid_origin,  # (2,) grid origin in the grid frame
+    range_data,  # RangeData2D (one keyframe's scans, own frame)
+    pose,  # (3,) se2 store frame -> grid frame (None = identity)
+    spec: GridSpec,
+    hit_p: float = 0.7,
+    miss_p: float = 0.4,
+    n_steps: int = 96,
+):
+    """Insert one keyframe's range store into an EXISTING grid at
+    `pose` -- the incremental active-submap insertion of the
+    Cartographer local-SLAM pattern (the reference's batch submap
+    build, range_data_inserter_2d.cc:51-94, applied one keyframe at a
+    time so each new keyframe can first be matched against the grid
+    built from its predecessors). The points are transformed in float64
+    on the host, then packed as the JAX package packs them here: S_pad
+    a power of two >= 8, B a power of two >= 4 (not pack_scans' ladder).
+    Runs `insert_rays` on the device of `probs`: the CUDA kernel for a
+    grid on the card, insert_rays_plain on the CPU. Returns the new
+    grid (`probs` itself when the store is empty)."""
+    pts = np.asarray(range_data.points)
+    metas = range_data.meta
+    if not metas or len(pts) == 0:
+        return probs
+    origins = np.stack([m[2] for m in metas])
+    if pose is not None:
+        if isinstance(pose, torch.Tensor):
+            pose = pose.detach().cpu().numpy()
+        pose = np.asarray(pose, np.float64)
+        pts = se2.apply(pose, pts)
+        origins = origins + pose[:2]
+    origins_pad, scan_pts, scan_kind = _pack(pts, metas, origins, 8)
+    dev = probs.device
+    return insert_rays(
+        probs,
+        torch.as_tensor(grid_origin, dtype=torch.float32).to(dev),
         torch.from_numpy(origins_pad).to(dev),
         torch.from_numpy(scan_pts).to(dev),
         torch.from_numpy(scan_kind).to(dev),
@@ -347,3 +403,26 @@ def build_submap_grid(
     args = submap_insert_args(range_data, spec, hit_p, miss_p, n_steps,
                               device)
     return SubmapGrid(insert_rays(*args), args[1], spec.resolution)
+
+
+# matplotlib's "gray" colormap as imsave writes it: 256 levels,
+# level k = k / 255 stored as the byte floor(255 k / 255 in float64)
+_GRAY_BYTES = (np.linspace(0.0, 1.0, 256) * 255).astype(np.uint8)
+
+
+def grid_to_png(probs, path: str):
+    """Dump a grid as a grayscale PNG (observability; replaces the rviz
+    occupancy-grid topics, visualizer.cpp:197-208): 1 - p where known,
+    0.5 where unknown, the grid transposed and flipped so +y is up, on
+    a gray scale over [0, 1] quantized to 256 levels as matplotlib's
+    imsave(cmap="gray", vmin=0, vmax=1) quantizes it. Written with
+    eval/maps.write_png (RGB; matplotlib is not needed)."""
+    from ..eval.maps import write_png
+
+    if isinstance(probs, torch.Tensor):
+        probs = probs.detach().cpu().numpy()
+    arr = np.asarray(probs)
+    img = np.where(arr > 0, 1.0 - arr, 0.5).T[::-1]
+    level = img * img.dtype.type(256)  # 256 (p = 0) is level 255
+    gray = _GRAY_BYTES[np.clip(level.astype(np.int64), 0, 255)]
+    write_png(path, np.repeat(gray[..., None], 3, axis=2))

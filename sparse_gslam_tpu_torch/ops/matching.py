@@ -17,7 +17,11 @@ window around the winner for the score-moment covariance. Refinement is
 Gauss-Newton on a bicubic-interpolated grid (`refine_pose*`): one launch
 of the CUDA kernel (ops/refine_cuda.py) for grids on the card, its plain
 version (ops/refine_exact.py, on the host) for grids on the CPU; both
-round as the JAX package's compiled CPU program does. The pin
+round as the JAX package's compiled CPU program does. `match_submap`
+(one candidate, the reference's matchOne), `match_submaps_batched` and
+`match_candidates_pruned_batched` (one host read per chunk of
+candidates) drive the same correlator; `score_pose` scores one pose and
+`pin_bounds_batch` bounds a batch of pins on the device. The pin
 helpers (`pin_bound_host`, `correlate_window_host`, `score_volume_cov`)
 are numpy on the host, as in the JAX package. The last section ports
 the JAX package's accelerator branch (`fused_match`,
@@ -94,6 +98,12 @@ def search_spec(
     n_ang = int(math.ceil(n_ang / angular_bucket) * angular_bucket)
     n_lin = int(math.ceil(linear_window / resolution))
     return SearchSpec(n_ang, step, n_lin, resolution)
+
+
+class MatchResult(NamedTuple):
+    score: torch.Tensor  # ()
+    pose: torch.Tensor  # (3,) [x, y, theta] in submap frame
+    cov: torch.Tensor  # (3, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -571,6 +581,77 @@ def _argmax_center_tiebreak(scores, n_linear, tol=None):
     return np.unravel_index(np.argmax(masked), scores.shape)
 
 
+def _on(x, device):
+    """x (a tensor on any device, or array-like) as a float32 tensor on
+    `device`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device, torch.float32)
+    return torch.tensor(np.asarray(x, np.float32), device=device)
+
+
+def _query(points, device):
+    """The query padded to the bucket 256 * 2^k >= N: (points (n, 2)
+    float32, valid (n,) bool) on `device`."""
+    N = len(points)
+    n_bucket = 256
+    while n_bucket < N:
+        n_bucket *= 2
+    pts = np.zeros((n_bucket, 2), np.float32)
+    pts[:N] = points
+    return (torch.from_numpy(pts).to(device),
+            torch.from_numpy(np.arange(n_bucket) < N).to(device))
+
+
+def _rotation_bounds(pooled_grids, origins, init_thetas, pts, valid,
+                     spec: SearchSpec, size: int, stride: int):
+    """The pruned matchers' phase 1: every candidate's rotation set
+    init_theta + k step (float32, (C, R)) and its per-rotation upper
+    bounds (C, R), in chunks of up to 16 candidates (one host read per
+    chunk)."""
+    R_full = 2 * spec.n_angular + 1
+    C = len(pooled_grids)
+    ks = np.arange(R_full) - spec.n_angular
+    all_thetas = np.stack(
+        [
+            (float(t0) + ks * spec.angular_step).astype(np.float32)
+            for t0 in init_thetas
+        ]
+    )
+    ubs = np.zeros((C, R_full), np.float32)
+    for c0 in range(0, C, 16):
+        idxs = list(range(c0, min(c0 + 16, C)))
+        ubs[idxs] = rotation_upper_bounds_batch(
+            torch.stack([pooled_grids[k] for k in idxs]),
+            torch.stack([origins[k] for k in idxs]),
+            torch.from_numpy(all_thetas[idxs]),
+            pts, valid, float(spec.resolution), int(spec.n_linear),
+            int(size), int(stride),
+        ).cpu().numpy()
+    return all_thetas, ubs
+
+
+def _pruned_result(best, score_grids, origins, init_thetas, pts, valid,
+                   spec: SearchSpec, size: int):
+    """The pruned matchers' phase 3: (best_idx or None, score, pose,
+    cov) from the best (score, cand_idx, theta, ox, oy), the covariance
+    by window_cov around it."""
+    if best is None:
+        return None, 0.0, None, None
+    sc, ci, th, ox, oy = best
+    pose = np.array([ox, oy, th])
+    th0 = float(init_thetas[ci])
+    f32 = np.float32
+    cov = window_cov(
+        score_grids[ci], origins[ci], pts, valid,
+        torch.from_numpy(pose.astype(f32)), f32(th0),
+        f32(spec.angular_step),
+        f32(th0 - spec.n_angular * spec.angular_step),
+        f32(th0 + spec.n_angular * spec.angular_step),
+        float(spec.resolution), int(size),
+    ).cpu().numpy().astype(np.float64)
+    return ci, sc, pose, cov
+
+
 def match_candidates_pruned(
     score_grids,  # list of level-0 (2x2 dilated) score grids
     pooled_grids,  # list of level-h pooled grids (same shapes)
@@ -595,37 +676,10 @@ def match_candidates_pruned(
     """
     dev = score_grids[0].device
     size = score_grids[0].shape[0]
-    N = len(points)
-    n_bucket = 256
-    while n_bucket < N:
-        n_bucket *= 2
-    pts_np = np.zeros((n_bucket, 2), np.float32)
-    pts_np[:N] = points
-    pts = torch.from_numpy(pts_np).to(dev)
-    valid = torch.from_numpy(np.arange(n_bucket) < N).to(dev)
+    pts, valid = _query(points, dev)
     fft_size = size + fft_margin_bucket
-    R_full = 2 * spec.n_angular + 1
-
-    # phase 1: per-rotation upper bounds for all candidates, in chunks
-    # of up to 16 candidates (one host read per chunk)
-    C = len(score_grids)
-    ks = np.arange(R_full) - spec.n_angular
-    all_thetas = np.stack(
-        [
-            (float(t0) + ks * spec.angular_step).astype(np.float32)
-            for t0 in init_thetas
-        ]
-    )
-    ubs = np.zeros((C, R_full), np.float32)
-    for c0 in range(0, C, 16):
-        idxs = list(range(c0, min(c0 + 16, C)))
-        ubs[idxs] = rotation_upper_bounds_batch(
-            torch.stack([pooled_grids[k] for k in idxs]),
-            torch.stack([origins[k] for k in idxs]),
-            torch.from_numpy(all_thetas[idxs]),
-            pts, valid, float(spec.resolution), int(spec.n_linear),
-            int(size), int(stride),
-        ).cpu().numpy()
+    all_thetas, ubs = _rotation_bounds(pooled_grids, origins, init_thetas,
+                                       pts, valid, spec, size, stride)
 
     # order candidates by best bound so the running-best floor prunes
     # later candidates harder
@@ -658,21 +712,8 @@ def match_candidates_pruned(
                 (int(i) - spec.n_linear) * spec.resolution,
                 (int(j) - spec.n_linear) * spec.resolution,
             )
-    if best is None:
-        return None, 0.0, None, None
-    sc, ci, th, ox, oy = best
-    pose = np.array([ox, oy, th])
-    th0 = float(init_thetas[ci])
-    f32 = np.float32
-    cov = window_cov(
-        score_grids[ci], origins[ci], pts, valid,
-        torch.from_numpy(pose.astype(f32)), f32(th0),
-        f32(spec.angular_step),
-        f32(th0 - spec.n_angular * spec.angular_step),
-        f32(th0 + spec.n_angular * spec.angular_step),
-        float(spec.resolution), int(size),
-    ).cpu().numpy().astype(np.float64)
-    return ci, sc, pose, cov
+    return _pruned_result(best, score_grids, origins, init_thetas, pts,
+                          valid, spec, size)
 
 
 def match_candidates_sharded(
@@ -751,6 +792,325 @@ def match_candidates_sharded(
     if sc < min_score:
         return None, sc, None, None
     return k, sc, p_all[k].astype(np.float64), c_all[k].astype(np.float64)
+
+
+# ---------------------------------------------------------------------------
+# single-submap and batched candidate matching
+# ---------------------------------------------------------------------------
+
+
+def match_submap(
+    score_grid,  # dilated (2x2 max) score grid, (size, size) tensor
+    grid_origin,
+    resolution,
+    points,  # (N,2) numpy query points (returns only)
+    init_theta: float,
+    spec: SearchSpec,
+    fft_margin_bucket: int = 64,
+):
+    """One candidate-submap match = reference matchOne
+    (submap_loop_closer.cpp:108-115): the exhaustive FFT correlator
+    (correlate_all) and the centred argmax with its score-moment
+    covariance (best_candidate_with_cov) on the device of `score_grid`.
+    Returns (score, pose, cov) as numpy; gating against min_score
+    happens in the caller."""
+    dev = score_grid.device
+    size = score_grid.shape[0]
+    pts, valid = _query(points, dev)
+    f32 = np.float32
+    scores, thetas = correlate_all(
+        score_grid, _on(grid_origin, dev), pts, valid, f32(init_theta),
+        f32(spec.angular_step), float(spec.resolution),
+        int(spec.n_angular), int(spec.n_linear), int(size),
+        int(size + fft_margin_bucket),
+    )
+    score, pose, cov = best_candidate_with_cov(
+        scores, thetas, f32(init_theta), f32(spec.angular_step),
+        float(spec.resolution), int(spec.n_linear),
+    )
+    return float(score), pose.cpu().numpy(), cov.cpu().numpy()
+
+
+def correlate_batch(
+    score_grids,  # (C, size, size)
+    origins,  # (C, 2)
+    init_thetas,  # (C,)
+    points,  # (N, 2) shared query
+    point_valid,  # (N,)
+    angular_step,
+    resolution: float,
+    n_angular: int,
+    n_linear: int,
+    size: int,
+    fft_size: int,
+):
+    """Score + argmax + covariance for C candidate submaps at once, each
+    as match_submap scores one (correlate_all, best_candidate_with_cov),
+    with no host read. Returns (scores (C,), poses (C,3), covs (C,3,3))
+    float32 tensors on the device of `score_grids`."""
+    outs = []
+    for i in range(score_grids.shape[0]):
+        scores, thetas = correlate_all(
+            score_grids[i], origins[i], points, point_valid,
+            init_thetas[i], angular_step, resolution, n_angular, n_linear,
+            size, fft_size,
+        )
+        outs.append(best_candidate_with_cov(
+            scores, thetas, init_thetas[i], angular_step, resolution,
+            n_linear))
+    return tuple(torch.stack([o[k] for o in outs]) for k in range(3))
+
+
+def match_submaps_batched(
+    score_grids,  # list of (size,size) tensors (same shape and device)
+    origins,
+    init_thetas,
+    points,  # (N,2) numpy
+    spec: SearchSpec,
+    chunk: int = 8,
+    fft_margin_bucket: int = 64,
+):
+    """Batched matchOne over candidate submaps with memory-bounded
+    chunking: chunks of up to `chunk` candidates, each padded to a power
+    of two by repeating its first candidate (the padding's results are
+    dropped), one correlate_batch and one host read per chunk. Returns a
+    list of (score, pose, cov) numpy triples, one per candidate."""
+    dev = score_grids[0].device
+    size = score_grids[0].shape[0]
+    pts, valid = _query(points, dev)
+    fft_size = size + fft_margin_bucket
+    out = []
+    for c0 in range(0, len(score_grids), chunk):
+        gs = list(score_grids[c0:c0 + chunk])
+        csize = 1
+        while csize < len(gs):
+            csize *= 2
+        pad = csize - len(gs)
+        grids = torch.stack(gs + [gs[0]] * pad)
+        origs = torch.stack([_on(o, dev) for o in
+                             list(origins[c0:c0 + chunk])
+                             + [origins[c0]] * pad])
+        th0 = torch.tensor(
+            np.asarray(list(init_thetas[c0:c0 + chunk])
+                       + [init_thetas[c0]] * pad, np.float32), device=dev)
+        s, p, cv = correlate_batch(
+            grids, origs, th0, pts, valid, np.float32(spec.angular_step),
+            float(spec.resolution), int(spec.n_angular),
+            int(spec.n_linear), int(size), int(fft_size),
+        )
+        host = torch.cat([s[:, None], p, cv.reshape(csize, 9)], 1).cpu()
+        host = host.numpy()
+        for k in range(len(gs)):
+            out.append((float(host[k, 0]), host[k, 1:4].copy(),
+                        host[k, 4:].reshape(3, 3).copy()))
+    return out
+
+
+def correlate_rotations_batch(
+    score_grids,  # (B, size, size)
+    origins,  # (B, 2)
+    points,
+    point_valid,
+    thetas,  # (B, R) per-candidate rotation sets
+    resolution,
+    n_linear: int,
+    size: int,
+    fft_size: int,
+):
+    """correlate_rotations over a candidate batch (shared query): the
+    (B R) histograms by one scatter-add with the batch folded into the
+    row index, one batched FFT of the histograms and one of the grids.
+    Returns (B, R, 2*n_linear+1, 2*n_linear+1) float32."""
+    dev = score_grids.device
+    B, R = thetas.shape
+    N = points.shape[0]
+    Fs = fft_size
+    c, s = rotation_tables(thetas.reshape(-1), dev)
+    px, py = _rotate(points, c, s)  # (B*R, N)
+    cx, cy = _cells(px.reshape(B, R, N), py.reshape(B, R, N),
+                    origins[:, 0, None, None], origins[:, 1, None, None],
+                    resolution)
+    inb = (
+        point_valid[None, None, :]
+        & (cx >= 0) & (cx < size) & (cy >= 0) & (cy < size)
+    )
+    hist = torch.zeros((B * R, Fs * Fs), dtype=torch.float32, device=dev)
+    rows = torch.arange(B * R, device=dev).reshape(B, R, 1).expand(inb.shape)
+    hist.index_put_(
+        (rows[inb], (cx * Fs + cy)[inb]),
+        torch.ones((), dtype=torch.float32, device=dev).expand(
+            int(inb.sum())),
+        accumulate=True,
+    )
+    grid_pad = torch.zeros((B, Fs, Fs), dtype=torch.float32, device=dev)
+    grid_pad[:, :size, :size] = score_grids
+    Fh = torch.fft.rfft2(hist.reshape(B, R, Fs, Fs))
+    Fg = torch.fft.rfft2(grid_pad)
+    corr = torch.fft.irfft2(torch.conj(Fh) * Fg[:, None], s=(Fs, Fs))
+    W = 2 * n_linear + 1
+    corr = torch.roll(corr, (n_linear, n_linear), dims=(2, 3))[
+        :, :, :W, :W]
+    n_valid = _n_valid(point_valid)
+    corr = corr + _pmin_fill(inb.sum(2), n_valid)[:, :, None, None]
+    return corr / n_valid
+
+
+def match_candidates_pruned_batched(
+    score_grids,
+    pooled_grids,
+    origins,
+    init_thetas,
+    points,
+    spec: SearchSpec,
+    min_score: float,
+    stride: int,
+    fft_margin_bucket: int = 64,
+    chunk: int = 8,
+):
+    """match_candidates_pruned with the FFT phase batched: the same
+    exact rotation pruning from pooled-grid upper bounds, but the
+    surviving candidates' rotations are scored in chunks (1, 2, 4, ...
+    up to `chunk` candidates, in order of their best bound) with ONE
+    host read per chunk instead of one per candidate; the running best
+    tightens the floor between chunks. The best match is the sequential
+    path's for any fixed min_score: every rotation above min_score on
+    the winning candidate is still scored. Returns (best_idx or None,
+    score, pose (3,), cov (3,3)), host values."""
+    dev = score_grids[0].device
+    size = score_grids[0].shape[0]
+    pts, valid = _query(points, dev)
+    fft_size = size + fft_margin_bucket
+    C = len(score_grids)
+    origins = [_on(o, dev) for o in origins]
+    all_thetas, ubs = _rotation_bounds(pooled_grids, origins, init_thetas,
+                                       pts, valid, spec, size, stride)
+
+    # phase 2: candidates in descending-bound order, up to `chunk` a
+    # device round-trip (the first, highest-bound candidate alone
+    # usually sets a floor that prunes the rest)
+    order = np.argsort(ubs.max(axis=1))[::-1]
+    best = None  # (score, cand_idx, theta, ox, oy)
+    pos = 0
+    cur_chunk = 1
+    while pos < C:
+        floor = max(min_score, best[0] if best else -1.0)
+        if ubs[int(order[pos])].max() <= floor:
+            break  # bound-ordered: nothing below can beat the floor
+        batch = []
+        while pos < C and len(batch) < cur_chunk:
+            ci = int(order[pos])
+            if ubs[ci].max() <= floor:
+                break
+            sel = np.nonzero(ubs[ci] > floor)[0]
+            pos += 1
+            if len(sel):
+                batch.append((ci, sel))
+        cur_chunk = min(2 * cur_chunk, chunk)
+        if not batch:
+            continue
+        Rb = 8
+        while Rb < max(len(sel) for _, sel in batch):
+            Rb *= 2
+        # at most ~128 rotation planes per correlate_rotations_batch
+        eff = max(1, min(len(batch), 128 // Rb))
+        parts, ths = [], []
+        for b0 in range(0, len(batch), eff):
+            sub = batch[b0:b0 + eff]
+            csize = 1
+            while csize < len(sub):
+                csize *= 2
+            sub_pad = sub + [sub[0]] * (csize - len(sub))
+            th = np.stack([
+                all_thetas[ci][np.concatenate(
+                    [sel, np.full(Rb - len(sel), sel[0], np.int64)])]
+                for ci, sel in sub_pad
+            ])
+            parts.append(correlate_rotations_batch(
+                torch.stack([score_grids[ci] for ci, _ in sub_pad]),
+                torch.stack([origins[ci] for ci, _ in sub_pad]),
+                pts, valid, torch.from_numpy(th),
+                float(spec.resolution), int(spec.n_linear), int(size),
+                int(fft_size),
+            )[:len(sub)])
+            ths.append(th[:len(sub)])
+        scores = torch.cat(parts).cpu().numpy()  # the chunk's host read
+        th = np.concatenate(ths)
+        for b, (ci, sel) in enumerate(batch):
+            k, i, j = _argmax_center_tiebreak(scores[b], spec.n_linear)
+            sc = float(scores[b, k, i, j])
+            if sc > max(min_score, best[0] if best else -1.0):
+                best = (
+                    sc, ci, float(th[b, k]),
+                    (int(i) - spec.n_linear) * spec.resolution,
+                    (int(j) - spec.n_linear) * spec.resolution,
+                )
+    return _pruned_result(best, score_grids, origins, init_thetas, pts,
+                          valid, spec, size)
+
+
+def score_pose(
+    score_grid,  # (size, size) level-0 score grid
+    grid_origin,
+    points,
+    point_valid,
+    pose,  # (3,)
+    resolution: float,
+    size: int,
+):
+    """Mean grid score of the query at one pose -- the same candidate
+    score the correlative matcher maximizes, evaluated pointwise (used
+    to accept/reject local refinement edges). float32 on the device of
+    `score_grid`, rotated and rounded to cells as the JAX package's CPU
+    program does (cosf/sinf, the contracted rotation, a true division
+    by the resolution), the sum in XLA's CPU order. Returns a 0-dim
+    tensor."""
+    dev = score_grid.device
+    pose = _on(pose, dev)
+    points = _on(points, dev)
+    grid_origin = _on(grid_origin, dev)
+    point_valid = torch.as_tensor(point_valid, device=dev)
+    c, s = rotation_tables(pose[2:3], dev)
+    px, py = _rotate(points, c, s)
+    cx, cy = _cells(px[0] + pose[0], py[0] + pose[1], grid_origin[0],
+                    grid_origin[1], resolution)
+    inb = point_valid & (cx >= 0) & (cx < size) & (cy >= 0) & (cy < size)
+    vals = torch.where(
+        inb,
+        score_grid[cx.clamp(0, size - 1), cy.clamp(0, size - 1)],
+        PMIN,
+    )
+    n = _n_valid(point_valid)
+    return _tree_sum_last(torch.where(point_valid, vals, 0.0)) / n
+
+
+def _bicubic_kernel(t):
+    """Catmull-Rom cubic weights for fractional offset t (4 taps)."""
+    t2 = t * t
+    t3 = t2 * t
+    w0 = -0.5 * t3 + t2 - 0.5 * t
+    w1 = 1.5 * t3 - 2.5 * t2 + 1.0
+    w2 = -1.5 * t3 + 2.0 * t2 + 0.5 * t
+    w3 = 0.5 * t3 - 0.5 * t2
+    return torch.stack([w0, w1, w2, w3], -1)
+
+
+def interp_grid(grid, origin, resolution, pts):
+    """Bicubic interpolation of grid at world pts (N,2); out-of-grid
+    clamps to border (Ceres BiCubicInterpolator semantics). Plain torch
+    on the device of `grid`; the refinement (refine_pose*) computes the
+    same interpolation in the JAX program's rounding (refine_exact)."""
+    size = grid.shape[0]
+    u = (pts[:, 0] - origin[0]) / resolution - 0.5
+    v = (pts[:, 1] - origin[1]) / resolution - 0.5
+    iu = torch.floor(u)
+    iv = torch.floor(v)
+    wu = _bicubic_kernel(u - iu)  # (N,4)
+    wv = _bicubic_kernel(v - iv)
+    taps = torch.arange(-1, 3, device=grid.device)
+    tu = torch.clamp(iu.long()[:, None] + taps[None], 0, size - 1)
+    tv = torch.clamp(iv.long()[:, None] + taps[None], 0, size - 1)
+    vals = grid[tu[:, :, None], tv[:, None, :]]  # (N,4,4)
+    return torch.einsum("na,nab,nb->n", wu, vals, wv)
 
 
 # ---------------------------------------------------------------------------
@@ -939,6 +1299,57 @@ def pin_bound_host(
         vals = np.maximum(vals, pooled_np[cx1, cy1])
     vals = np.maximum(vals, PMIN)
     return float(vals.mean(axis=1).max())
+
+
+def pin_bounds_batch(
+    pooled_stack,  # (M, S, S) stacked level-(depth-1) pooled grids
+    sm_ids,  # (Kp,) per-pin submap index into the stack
+    origins,  # (Kp, 2) grid origin minus the pin seed xy
+    points,  # (Kp, N, 2)
+    point_valid,  # (Kp, N) bool
+    thetas,  # (Kp, R)
+    resolution,
+    n_linear: int,
+    extra: bool,
+):
+    """Device-batched pin_bound_host: exact upper bounds for a batch of
+    per-keyframe pin candidates in one call on the device of
+    `pooled_stack`, float32, with no host read. `extra` = the 2x2
+    coverage lookups for stride == 2*n_linear (see pin_bound_host).
+    Cells round as the JAX program's (cosf/sinf, the contracted
+    rotation, a true division by the resolution) and the per-pin sums
+    go in XLA's CPU order. Returns (Kp,) bounds."""
+    dev = pooled_stack.device
+    Kp, R = thetas.shape
+    N = points.shape[1]
+    S = pooled_stack.shape[1]
+    c, s = rotation_tables(thetas.reshape(-1), dev)
+    c = c.reshape(Kp, R, 1).expand(Kp, R, N)
+    s = s.reshape(Kp, R, 1).expand(Kp, R, N)
+    x = points[:, None, :, 0].expand(Kp, R, N)
+    y = points[:, None, :, 1].expand(Kp, R, N)
+    px = _fma_f32(c, x, -(s * y))
+    py = _fma_f32(s, x, c * y)
+    cx, cy = _cells(px, py, origins[:, 0, None, None],
+                    origins[:, 1, None, None], resolution)
+    cx = torch.clamp(cx - n_linear, 0, S - 1)
+    cy = torch.clamp(cy - n_linear, 0, S - 1)
+    ids = sm_ids.long()[:, None, None]
+
+    def look(dx, dy):
+        gx = torch.clamp(cx + dx, max=S - 1)
+        gy = torch.clamp(cy + dy, max=S - 1)
+        return pooled_stack[ids, gx, gy]
+
+    vals = look(0, 0)
+    if extra:
+        vals = torch.maximum(vals, look(1, 0))
+        vals = torch.maximum(vals, look(0, 1))
+        vals = torch.maximum(vals, look(1, 1))
+    vals = torch.clamp(vals, min=PMIN)
+    vals = torch.where(point_valid[:, None, :], vals, 0.0)
+    n = torch.clamp(point_valid.sum(-1), min=1).to(vals.dtype)
+    return (_tree_sum_last(vals) / n[:, None]).amax(-1)
 
 
 def correlate_window_host(

@@ -120,6 +120,20 @@ class OdomErrorPropagator:
         self.pose = se2.compose(self.pose, dpose)
 
 
+def propagate_chain(deltas, var, model: str = "reference"):
+    """Pose+cov propagation over a chain of deltas.
+
+    deltas: (K,3). Returns pose (3,), cov (3,3) after composing all
+    steps starting from identity -- equivalent to repeated
+    OdomErrorPropagator.step.
+    """
+    prop = OdomErrorPropagator(1.0, 1.0, 1.0, model)
+    prop.var = var
+    for d in deltas:
+        prop.step(d)
+    return prop.pose, prop.cov
+
+
 def propagate_suffixes(deltas, var, model: str = "reference"):
     """All-suffix propagation: for each i, the pose+cov of composing
     deltas[i:], each starting from identity.

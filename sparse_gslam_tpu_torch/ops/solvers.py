@@ -1,8 +1,7 @@
 """Landmark-graph Levenberg-Marquardt and pose-graph Gauss-Newton
 solvers on torch tensors.
 
-Port of sparse_gslam_tpu/ops/solvers.py without posegraph_chi2
-(ROADMAP.md). The landmark graph (the reference's g2o LM
+Port of sparse_gslam_tpu/ops/solvers.py. The landmark graph (the reference's g2o LM
 + BlockSolver<-1,2>, src/sparse_gslam/src/graphs.cpp:9-37): fixed-shape
 masked edge tables, batched residuals and closed-form Jacobians,
 scatter-assembled normal equations, Schur elimination of the 2-DoF
@@ -694,6 +693,20 @@ class PoseGraphData(NamedTuple):
     clo_meas: torch.Tensor  # (C, 3)
     clo_info: torch.Tensor  # (C, 3, 3)
     clo_valid: torch.Tensor  # (C,) bool
+
+
+def posegraph_chi2(g: PoseGraphData, phi: float | None = None):
+    """chi2 of all active edges; closure chi2 optionally DCS-scaled
+    (g2o adds rho(chi2) = w chi2 to the robust objective)."""
+    N = g.poses.shape[0]
+    idx_prev = _idx_prev(N, g.poses.device)
+    eo = se2_edge_residual(g.poses[idx_prev], g.poses, g.chain_meas)
+    c_o = torch.einsum("ni,nij,nj->n", eo, g.chain_info, eo)
+    chi2 = torch.where(g.chain_valid, c_o, 0.0).sum()
+    c_c = closure_chi2(g)
+    if phi is not None:
+        c_c = dcs_weight(c_c, phi) * c_c
+    return chi2 + torch.where(g.clo_valid, c_c, 0.0).sum()
 
 
 def closure_chi2(g: PoseGraphData):

@@ -15,7 +15,11 @@ blocked pose-graph solver 1e-8 m/rad after 40 iterations in float64
 differences), 1e-5 in float32 after four float64 refinement rounds;
 the joint landmark + pose solve 1e-8 m/rad and chi2 rtol 1e-9 (cuBLAS
 and cuSOLVER against the CPU's BLAS and LAPACK on a well-conditioned
-loop).
+loop); insert_range_data over successive keyframes into one grid
+bit-equal (each launch against the plain version on the same grid);
+the single-submap and batched matchers: candidate and pose equal,
+scores 1e-5, best_candidate_with_cov's covariance rtol 1e-4 / atol
+1e-5, window_cov's equal, pin bounds bit-equal.
 """
 import numpy as np
 import pytest
@@ -24,10 +28,13 @@ import torch
 from sparse_gslam_tpu_torch.models.backend import SubmapLoopCloser
 from sparse_gslam_tpu_torch.models.frontend import Frontend, Keyframe
 from sparse_gslam_tpu_torch.models.range_data import RangeData2D
-from sparse_gslam_tpu_torch.ops import matching, solvers
+from sparse_gslam_tpu_torch.ops import grid as grid_mod
+from sparse_gslam_tpu_torch.ops import grid_cuda, matching, solvers
 from sparse_gslam_tpu_torch.ops.grid import (
     GridSpec,
     build_submap_grid,
+    insert_range_data,
+    insert_rays_plain,
     precompute_pyramid,
 )
 from sparse_gslam_tpu_torch.utils import se2
@@ -388,3 +395,112 @@ def test_sharded_pose_graph_on_cuda_matches_blocked(shards):
     bl = dist_solver.optimize_partitioned(g, 1.0, 8, iterations=20).poses
     assert sh.is_cuda
     assert float((sh - bl).abs().max()) <= 1e-10
+
+
+@pytest.mark.gpu
+def test_insert_range_data_on_cuda_matches_plain():
+    """Successive keyframes into one grid on the card: each launch reads
+    the odds the earlier ones wrote, and equals the plain version on the
+    same grid and inputs; S below and above 8 scans a keyframe."""
+    need_card()
+    rng = np.random.default_rng(4)
+    a = np.linspace(-1.2, 1.2, 45)
+    table = np.stack([np.cos(a), np.sin(a)], 1)
+    spec = GridSpec(size=320, resolution=0.1)
+    origin = torch.tensor([-16.0, -16.0], device="cuda")
+    probs = torch.zeros((320, 320), device="cuda")
+    calls = []
+    real = grid_mod.insert_rays
+
+    def recording(*args):
+        out = real(*args)
+        calls.append((args, out))
+        return out
+
+    grid_cuda.reset_launches(grid_cuda.insert_rays_cuda)
+    try:
+        grid_mod.insert_rays = recording
+        for k in range(6):
+            rd = RangeData2D()
+            for _ in range(3 if k % 2 else 11):
+                ranges = rng.uniform(1.0, 9.0, len(a))
+                ranges[rng.random(len(a)) < 0.2] = 12.0
+                sp = np.array([*rng.uniform(-0.2, 0.2, 2),
+                               rng.uniform(-0.1, 0.1)])
+                rd.insert_scan(ranges, table, 10.0, pose=sp)
+            pose = np.array([0.6 * k, 0.2 * k, 0.15 * k])
+            probs = insert_range_data(probs, origin, rd, pose, spec)
+    finally:
+        grid_mod.insert_rays = real
+    assert grid_cuda.insert_rays_cuda.launches == len(calls) == 6
+    for args, out in calls:
+        assert torch.equal(out, insert_rays_plain(*args))
+    assert (probs > 0.5).sum() > 100
+
+
+def _match_inputs():
+    """tests/test_grid_matching.py TestBatchedPrunedMatching's case: the
+    true submap (index 1) among decoys whose origins lie far off, so
+    that no two candidates tie within the FFTs' rounding."""
+    probs, score, pooled, origin, base = room()
+    query = se2.apply(se2.inverse(np.array([0.4, -0.3, 0.1])), base)
+    shifts = [(30.0, 30.0), (0.0, 0.0), (-25.0, 10.0), (12.0, -28.0),
+              (-30.0, -30.0)]
+    origins = [origin + torch.tensor(s) for s in shifts]
+    thetas0 = [0.3, 0.0, -0.2, 0.1, -0.4]
+    return score, pooled, origins, thetas0, query
+
+
+@pytest.mark.gpu
+def test_batched_matchers_on_cuda_match_cpu():
+    need_card()
+    score, pooled, origins, thetas0, query = _match_inputs()
+    spec = matching.search_spec(2.0, 0.6, 8.0, 0.1)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sg = [score.to(dev)] * 5
+        pg = [pooled.to(dev)] * 5
+        og = [o.to(dev) for o in origins]
+        out[dev] = (
+            matching.match_submap(sg[0], og[0], 0.1, query, 0.0, spec),
+            matching.match_submaps_batched(sg, og, thetas0, query, spec,
+                                           chunk=4),
+            matching.match_candidates_pruned_batched(
+                sg, pg, og, thetas0, query, spec, 0.5, 16, chunk=2),
+            matching.match_candidates_pruned(sg, pg, og, thetas0, query,
+                                             spec, 0.5, 16),
+        )
+    c, h = out["cuda"], out["cpu"]
+    for a, b in [(c[0], h[0])] + list(zip(c[1], h[1])):
+        assert abs(a[0] - b[0]) <= 1e-5
+        np.testing.assert_array_equal(a[1], b[1])
+        np.testing.assert_allclose(a[2], b[2], rtol=1e-4, atol=1e-5)
+    for a, b in ((c[2], h[2]), (c[2], c[3])):
+        assert a[0] == b[0] == 1
+        assert abs(a[1] - b[1]) <= 1e-5
+        np.testing.assert_array_equal(a[2], b[2])
+        np.testing.assert_array_equal(a[3], b[3])
+
+
+@pytest.mark.gpu
+def test_pin_bounds_and_score_pose_on_cuda_match_cpu():
+    need_card()
+    probs, score, pooled, origin, base = room()
+    rng = np.random.default_rng(6)
+    Kp, N, R = 6, 200, 9
+    pts = torch.from_numpy(rng.uniform(0, 6, (Kp, N, 2)).astype(np.float32))
+    val = torch.from_numpy(rng.random((Kp, N)) < 0.8)
+    orgs = origin[None] + torch.from_numpy(
+        rng.uniform(-1, 1, (Kp, 2)).astype(np.float32))
+    ths = torch.from_numpy(rng.uniform(-0.3, 0.3, (Kp, R)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 2, Kp))
+    stack = torch.stack([pooled, score])
+    b = {dev: matching.pin_bounds_batch(
+        stack.to(dev), ids.to(dev), orgs.to(dev), pts.to(dev), val.to(dev),
+        ths.to(dev), 0.1, 8, extra=True).cpu() for dev in ("cpu", "cuda")}
+    assert torch.equal(b["cuda"], b["cpu"])
+    pose = torch.tensor([0.4, -0.3, 0.1])
+    s = {dev: matching.score_pose(
+        score.to(dev), origin.to(dev), pts[0].to(dev), val[0].to(dev),
+        pose.to(dev), 0.1, 128).cpu() for dev in ("cpu", "cuda")}
+    assert torch.equal(s["cuda"], s["cpu"])

@@ -3,9 +3,11 @@ sim-office through both frontend-only SlamSystems on the CPU (float64),
 the global map through both render_maps, and the port's runner, with
 and without the backend, in a process of its own that never imports
 jax (nor does importing the blocked pose-graph solver, its partition,
-the synthetic graphs, the native oracle, the refinement kernel's
-wrapper, the checkpoint, live-view, timing, cli, simulator, wall
-follower or Crazyflie modules there). (The backend-on systems are compared in test_torch_backend.py.)
+the synthetic graphs, the native layer (the C++ CARMEN parser through
+the provider's default path, the branch-and-bound matchers), the
+single-submap and batched matchers, the pin bounds, the incremental
+insertion, the refinement kernel's wrapper, the checkpoint, live-view,
+timing, cli, simulator, wall follower or Crazyflie modules there). (The backend-on systems are compared in test_torch_backend.py.)
 
 Tolerance for keyframe estimates: atol=1e-8. The two LM solvers sum in
 different orders (and the port's long-window path uses cyclic
@@ -126,6 +128,40 @@ def test_runner_subprocess_imports_no_jax(tmp_path, case):
         "import sparse_gslam_tpu_torch.parallel.multihost\n"
         "import sparse_gslam_tpu_torch.graft_entry\n"
         "import sparse_gslam_tpu_torch.eval.sweep\n"
+        "import numpy as np\n"
+        "import torch\n"
+        "from sparse_gslam_tpu_torch.io import native, providers\n"
+        "from sparse_gslam_tpu_torch.ops import grid, matching\n"
+        "from sparse_gslam_tpu_torch.ops.multicloud import propagate_chain\n"
+        "from sparse_gslam_tpu_torch.ops.solvers import posegraph_chi2\n"
+        "from sparse_gslam_tpu_torch.eval.relations import "
+        "evaluate_per_separation\n"
+        "from sparse_gslam_tpu_torch.eval.synthetic_graphs import "
+        "graph_to_arrays\n"
+        f"log = {str(data / 'sim-office.log')!r}\n"
+        "assert native.parse_carmen_native(log)[0].shape == (663,)\n"
+        "assert len(list(providers.CarmenLogDataProvider(log).frames())) "
+        "== 663\n"
+        "g = np.full((64, 64), 0.15, np.float32); g[20:40, 30] = 0.9\n"
+        "q = np.stack([np.full(20, 0.05), (np.arange(20) - 10) * 0.1], 1)\n"
+        "assert native.correlative_match_many_native(g[None], "
+        "np.array([[-3.0, -3.2]]), 0.1, q, [0.0], 0.01, 4, 5, 3, 0.2) "
+        "is not None\n"
+        "pyr = grid.precompute_pyramid(torch.from_numpy(g), 5)\n"
+        "o = torch.tensor([-3.0, -3.2])\n"
+        "spec = matching.search_spec(0.5, 0.05, 3.0, 0.1)\n"
+        "matching.match_submap(pyr[0], o, 0.1, q, 0.0, spec)\n"
+        "matching.match_submaps_batched([pyr[0]] * 2, [o] * 2, [0.0, 0.1], "
+        "q, spec)\n"
+        "matching.match_candidates_pruned_batched([pyr[0]], [pyr[4]], [o], "
+        "[0.0], q, spec, 0.2, 16)\n"
+        "matching.pin_bounds_batch(pyr[4][None], torch.zeros(1, "
+        "dtype=torch.long), o[None], torch.from_numpy(q[None].astype("
+        "np.float32)), torch.ones(1, 20, dtype=torch.bool), "
+        "torch.zeros(1, 3), 0.1, 5, True)\n"
+        "p = grid.insert_range_data(torch.zeros(64, 64), o, "
+        "__import__('sparse_gslam_tpu_torch.models.range_data', "
+        "fromlist=['x']).RangeData2D(), None, grid.GridSpec(64, 0.1))\n"
         f"runner.main(['--dataset-dir', {str(data)!r}, '--dataset-name', "
         f"'sim-office', '--device', 'cpu', *{flags!r}, '--max-frames', "
         f"'{frames}', '--eval', '--map-png', {str(png)!r}])\n"
