@@ -6,9 +6,9 @@ The JAX package's runner also writes .fflag/.bflag sidecars (one 0/1
 line per timing line) marking ticks that contained an XLA compile; when
 present, analyze() also reports steady-state (compile-free) mean/max
 and the total time spent in compile-containing ticks. The port has no
-compile phase: its runner (io/result_writer.TimingWriter) writes the
-sidecars all-zero, so on a port run the steady columns equal the raw
-ones, as they do for the reference. Port of
+compile phase: its runner (io/result_writer.TimingWriter) writes no
+sidecars, which reads as all zero, so on a port run the steady columns
+equal the raw ones, as they do for the reference. Port of
 sparse_gslam_tpu/eval/timing.py; reads the files of either package.
 """
 from __future__ import annotations

@@ -51,7 +51,6 @@ import dataclasses
 import functools
 import math
 import os
-import time as _time
 
 import numpy as np
 import torch
@@ -67,6 +66,7 @@ from ..ops.line_geometry import transform_line
 from ..parallel import dist_solver
 from ..utils import se2
 from ..utils.config import SlamConfig
+from ..utils.trace import Recorder
 from .frontend import Frontend, _bucket
 from .range_data import construct_multicloud
 
@@ -152,9 +152,12 @@ class Closure:
 
 class SubmapLoopCloser:
     def __init__(self, config: SlamConfig, frontend: Frontend,
-                 device="cuda", accel_branch: bool = False):
+                 device="cuda", accel_branch: bool = False, rec=None):
+        """rec: the utils.trace.Recorder of the owning system (a fresh
+        one, off, without)."""
         self.config = config
         self.frontend = frontend
+        self.rec = rec if rec is not None else Recorder()
         self.device = torch.device(device)
         # the JAX package's accelerator branch (module docstring)
         self.accel_branch = bool(accel_branch)
@@ -182,7 +185,9 @@ class SubmapLoopCloser:
         hsize = int(math.ceil(extent / 0.05 / 64.0) * 64)
         self.high_spec = GridSpec(size=hsize, resolution=0.05)
         self.match_calls = 0
-        # intra-tick wall-time accounting (seconds per phase)
+        # intra-tick wall-time accounting (seconds per phase): the
+        # slam.backend.<phase> spans of self.rec, timed whether or not
+        # it records them
         self.prof = collections.defaultdict(float)
         # local-refinement accept/reject counters (diagnostics)
         self.local_stats = {
@@ -269,9 +274,9 @@ class SubmapLoopCloser:
         if not kfs:
             return
         if self.config.kf_refine:
-            _t = _time.perf_counter()
-            self._keyframe_edges()
-            self.prof["kf_edges"] += _time.perf_counter() - _t
+            with self.rec.timed("slam.backend.kf_edges") as _t:
+                self._keyframe_edges()
+            self.prof["kf_edges"] += _t.seconds
         est = self.frontend.estimates()
         traj_len = 0.0
         mid = -1
@@ -287,14 +292,14 @@ class SubmapLoopCloser:
             i += 1
         if traj_len <= self.config.submap_trajectory_length:
             return
-        _t = _time.perf_counter()
-        rd = construct_multicloud(
-            [k.data for k in kfs], est, self.last_pose_idx, mid, i + 1
-        )
-        score, pooled, probs, origin, high, high_origin = (
-            self._build_grids(rd)
-        )
-        self.prof["grid_build"] += _time.perf_counter() - _t
+        with self.rec.timed("slam.backend.grid_build") as _t:
+            rd = construct_multicloud(
+                [k.data for k in kfs], est, self.last_pose_idx, mid, i + 1
+            )
+            score, pooled, probs, origin, high, high_origin = (
+                self._build_grids(rd)
+            )
+        self.prof["grid_build"] += _t.seconds
         self.submaps.append(
             Submap(
                 anchor_idx=mid, score_grid=score, pooled_grid=pooled,
@@ -308,9 +313,9 @@ class SubmapLoopCloser:
         self._high_stack = None
         self.last_pose_idx = max(0, mid - cfg.submap_overlap_poses)
         if cfg.local_refine:
-            _t = _time.perf_counter()
-            self._chain_edges()
-            self.prof["chain_edges"] += _time.perf_counter() - _t
+            with self.rec.timed("slam.backend.chain_edges") as _t:
+                self._chain_edges()
+            self.prof["chain_edges"] += _t.seconds
 
     # --------------------------------------------------------------------
     def _ensure_pg_init(self):
@@ -349,21 +354,19 @@ class SubmapLoopCloser:
         snapshotted under the lock, the expensive candidate matching
         runs unlocked, and the apply phase locks again."""
         guard = lock if lock is not None else contextlib.nullcontext()
-        _t = _time.perf_counter()
-        with guard:
+        with self.rec.timed("slam.backend.match_snapshot") as _t, guard:
             snap = self._match_snapshot()
-        self.prof["match_snapshot"] += _time.perf_counter() - _t
+        self.prof["match_snapshot"] += _t.seconds
         result = None
         if snap is not None:
-            _t = _time.perf_counter()
-            result = self._match_search(snap)  # runs unlocked
-            self.prof["match_search"] += _time.perf_counter() - _t
+            with self.rec.timed("slam.backend.match_search") as _t:
+                result = self._match_search(snap)  # runs unlocked
+            self.prof["match_search"] += _t.seconds
         if result is None:
             return False
-        _t = _time.perf_counter()
-        with guard:
+        with self.rec.timed("slam.backend.match_apply") as _t, guard:
             self._match_apply(snap, result)
-        self.prof["match_apply"] += _time.perf_counter() - _t
+        self.prof["match_apply"] += _t.seconds
         return True
 
     def _match_snapshot(self):
@@ -497,9 +500,9 @@ class SubmapLoopCloser:
                 [c[1] for c in candidates], query, spec, self.match_mesh,
                 float(self.loop_closure_min_score))
         else:
-            _t = _time.perf_counter()
-            ci, score, pose, cov = run(self.loop_closure_min_score)
-            self.prof["match_correlate"] += _time.perf_counter() - _t
+            with self.rec.timed("slam.backend.match_correlate") as _t:
+                ci, score, pose, cov = run(self.loop_closure_min_score)
+            self.prof["match_correlate"] += _t.seconds
         self.match_calls += len(candidates)
         if os.environ.get("SLAM_LOG_MATCHES"):
             # match-score progress lines like the reference's stdout
@@ -534,9 +537,9 @@ class SubmapLoopCloser:
         pose = np.asarray(pose, np.float64).copy()
         pose[:2] += np.asarray(candidates[ci][2], np.float64)
 
-        _t = _time.perf_counter()
-        refined, censi_cov = self._refine_high(sm, query, pose)
-        self.prof["match_refine"] += _time.perf_counter() - _t
+        with self.rec.timed("slam.backend.match_refine") as _t:
+            refined, censi_cov = self._refine_high(sm, query, pose)
+        self.prof["match_refine"] += _t.seconds
         cov = self._closure_cov(censi_cov, cov)
 
         along_drift, sigma_along, reject = self._ridge_drift_gate(
@@ -898,49 +901,49 @@ class SubmapLoopCloser:
         ks = np.arange(R) - spec.n_angular
         size = self.spec.size
         fft_size = size + 64
-        _t = _time.perf_counter()
-        spectra = self._get_spectra_stack(fft_size)
-        high_stack, high_origins = self._get_high_stack()
-        self.prof["kf_stack"] += _time.perf_counter() - _t
+        with self.rec.timed("slam.backend.kf_stack") as _t:
+            spectra = self._get_spectra_stack(fft_size)
+            high_stack, high_origins = self._get_high_stack()
+        self.prof["kf_stack"] += _t.seconds
         made = 0
         B = 8
         for lo in range(0, len(pending), B):
             chunk = pending[lo:lo + B]
-            _t = _time.perf_counter()
-            pts = np.zeros((B, 512, 2), np.float32)
-            val = np.zeros((B, 512), bool)
-            orgs = np.zeros((B, 2), np.float32)
-            seeds = np.zeros((B, 3), np.float32)
-            ths = np.zeros((B, R), np.float32)
-            ids = np.zeros(B, np.int64)
-            live = np.zeros(B, bool)
-            for k, (j, smi, query, seed) in enumerate(chunk):
-                pts[k, :len(query)] = query
-                val[k, :len(query)] = True
-                orgs[k] = _host(self.submaps[smi].origin)[0] - seed[:2]
-                seeds[k] = seed
-                ths[k] = seed[2] + ks * spec.angular_step
-                ids[k] = smi
-                live[k] = True
-            t = pin_batch_from_numpy(
-                dict(ids=ids, orgs=orgs, seeds=seeds, pts=pts, val=val,
-                     ths=ths, live=live), self.device)
-            out = matching.pin_eval_batch(
-                spectra, high_stack, high_origins, t["ids"], t["orgs"],
-                t["seeds"], t["pts"], t["val"], t["ths"], t["live"],
-                resolution=res, n_linear=int(spec.n_linear),
-                size=int(size), fft_size=int(fft_size),
-            ).cpu().numpy()
-            self.prof["kf_window"] += _time.perf_counter() - _t
-            _t = _time.perf_counter()
-            for k, (j, smi, query, seed) in enumerate(chunk):
-                refined, cov, score, why = self._pin_accept_packed(
-                    out[k], spec, cfg.kf_min_score, cfg.kf_min_overlap,
-                    cfg.kf_refine_sigma_xy, cfg.kf_refine_sigma_th,
-                )
-                made += self._pin_finish(j, self.submaps[smi], query,
-                                         refined, cov, score, why, stats)
-            self.prof["kf_accept"] += _time.perf_counter() - _t
+            with self.rec.timed("slam.backend.kf_window") as _t:
+                pts = np.zeros((B, 512, 2), np.float32)
+                val = np.zeros((B, 512), bool)
+                orgs = np.zeros((B, 2), np.float32)
+                seeds = np.zeros((B, 3), np.float32)
+                ths = np.zeros((B, R), np.float32)
+                ids = np.zeros(B, np.int64)
+                live = np.zeros(B, bool)
+                for k, (j, smi, query, seed) in enumerate(chunk):
+                    pts[k, :len(query)] = query
+                    val[k, :len(query)] = True
+                    orgs[k] = _host(self.submaps[smi].origin)[0] - seed[:2]
+                    seeds[k] = seed
+                    ths[k] = seed[2] + ks * spec.angular_step
+                    ids[k] = smi
+                    live[k] = True
+                t = pin_batch_from_numpy(
+                    dict(ids=ids, orgs=orgs, seeds=seeds, pts=pts, val=val,
+                         ths=ths, live=live), self.device)
+                out = matching.pin_eval_batch(
+                    spectra, high_stack, high_origins, t["ids"], t["orgs"],
+                    t["seeds"], t["pts"], t["val"], t["ths"], t["live"],
+                    resolution=res, n_linear=int(spec.n_linear),
+                    size=int(size), fft_size=int(fft_size),
+                ).cpu().numpy()
+            self.prof["kf_window"] += _t.seconds
+            with self.rec.timed("slam.backend.kf_accept") as _t:
+                for k, (j, smi, query, seed) in enumerate(chunk):
+                    refined, cov, score, why = self._pin_accept_packed(
+                        out[k], spec, cfg.kf_min_score, cfg.kf_min_overlap,
+                        cfg.kf_refine_sigma_xy, cfg.kf_refine_sigma_th,
+                    )
+                    made += self._pin_finish(j, self.submaps[smi], query,
+                                             refined, cov, score, why, stats)
+            self.prof["kf_accept"] += _t.seconds
         return made
 
     def _pin_accept_packed(self, row, spec, min_score, min_overlap,
@@ -1136,66 +1139,66 @@ class SubmapLoopCloser:
         kfs = self.frontend.keyframes
         if not self.submaps or len(self.pg_poses) < 2:
             return
-        _t0 = _time.perf_counter()
-        for _ in range(max(0, rounds)):
-            map_pose = self._map_transforms()
-            est_arr = np.stack([map_pose(k) for k in range(len(kfs))])
-            self.rebuild_grids(est_arr)
-            by_anchor = {sm.anchor_idx: sm for sm in self.submaps}
-            n = len(self.pg_poses)
-            for c in self.closures:
-                if not c.active or c.kind == "kf":
-                    continue
-                if c.i not in by_anchor or c.i >= n or c.j >= n:
-                    continue
-                sm = by_anchor[c.i]
-                # a short query window around the j endpoint (a query
-                # multicloud's mid, or another submap's anchor after
-                # rematch_all)
-                query = construct_multicloud(
-                    [k.data for k in kfs], est_arr, max(0, c.j - 3), c.j,
-                    min(len(kfs), c.j + 4), returns_only=True,
-                )
-                if len(query) < 12:
-                    continue
-                if len(query) > 512:
-                    query = query[
-                        np.linspace(0, len(query) - 1, 512).astype(int)
-                    ]
-                # seeded at the current estimate, within ~0.1 m of the
-                # truth after the solve: no basin to escape, and no
-                # window argmax, which would reproduce the estimate
-                seed = se2.relative(est_arr[c.i], est_arr[c.j])
-                refined, censi, _ = self._refine_on_submap(
-                    sm, query, seed, 0.4, 0.0, high_res=True
-                )
-                if refined is None:
-                    continue
-                # ambiguity (ridge) covariance from the exhaustive
-                # window around the refined pose
-                res = float(sm.resolution)
-                spec = matching.search_spec(
-                    cfg.kf_search_window, cfg.kf_angular_window,
-                    float(np.linalg.norm(query, axis=1).max()), res,
-                )
-                ks = np.arange(-spec.n_angular, spec.n_angular + 1)
-                thetas = refined[2] + ks * spec.angular_step
-                scores = matching.correlate_window_host(
-                    self._score_grid_host(sm),
-                    _host(sm.origin)[0] - refined[:2], res, query,
-                    thetas, spec.n_linear,
-                )
-                wcov = matching.score_volume_cov(
-                    scores, thetas, refined[2], res, spec.n_linear
-                )
-                cov = self._cov_hybrid(
-                    censi, wcov, spec.angular_step,
-                    cfg.closure_sigma_xy, cfg.closure_sigma_th,
-                )
-                c.meas = refined
-                c.info = np.linalg.inv(cov)
-            self.optimize(iterations=iterations, gnc_scale=gnc_scale)
-        self.prof["refine_map"] += _time.perf_counter() - _t0
+        with self.rec.timed("slam.backend.refine_map") as _t:
+            for _ in range(max(0, rounds)):
+                map_pose = self._map_transforms()
+                est_arr = np.stack([map_pose(k) for k in range(len(kfs))])
+                self.rebuild_grids(est_arr)
+                by_anchor = {sm.anchor_idx: sm for sm in self.submaps}
+                n = len(self.pg_poses)
+                for c in self.closures:
+                    if not c.active or c.kind == "kf":
+                        continue
+                    if c.i not in by_anchor or c.i >= n or c.j >= n:
+                        continue
+                    sm = by_anchor[c.i]
+                    # a short query window around the j endpoint (a query
+                    # multicloud's mid, or another submap's anchor after
+                    # rematch_all)
+                    query = construct_multicloud(
+                        [k.data for k in kfs], est_arr, max(0, c.j - 3), c.j,
+                        min(len(kfs), c.j + 4), returns_only=True,
+                    )
+                    if len(query) < 12:
+                        continue
+                    if len(query) > 512:
+                        query = query[
+                            np.linspace(0, len(query) - 1, 512).astype(int)
+                        ]
+                    # seeded at the current estimate, within ~0.1 m of the
+                    # truth after the solve: no basin to escape, and no
+                    # window argmax, which would reproduce the estimate
+                    seed = se2.relative(est_arr[c.i], est_arr[c.j])
+                    refined, censi, _ = self._refine_on_submap(
+                        sm, query, seed, 0.4, 0.0, high_res=True
+                    )
+                    if refined is None:
+                        continue
+                    # ambiguity (ridge) covariance from the exhaustive
+                    # window around the refined pose
+                    res = float(sm.resolution)
+                    spec = matching.search_spec(
+                        cfg.kf_search_window, cfg.kf_angular_window,
+                        float(np.linalg.norm(query, axis=1).max()), res,
+                    )
+                    ks = np.arange(-spec.n_angular, spec.n_angular + 1)
+                    thetas = refined[2] + ks * spec.angular_step
+                    scores = matching.correlate_window_host(
+                        self._score_grid_host(sm),
+                        _host(sm.origin)[0] - refined[:2], res, query,
+                        thetas, spec.n_linear,
+                    )
+                    wcov = matching.score_volume_cov(
+                        scores, thetas, refined[2], res, spec.n_linear
+                    )
+                    cov = self._cov_hybrid(
+                        censi, wcov, spec.angular_step,
+                        cfg.closure_sigma_xy, cfg.closure_sigma_th,
+                    )
+                    c.meas = refined
+                    c.info = np.linalg.inv(cov)
+                self.optimize(iterations=iterations, gnc_scale=gnc_scale)
+        self.prof["refine_map"] += _t.seconds
 
     # --------------------------------------------------------------------
     def rebuild_grids(self, est_arr: np.ndarray) -> None:
@@ -1234,9 +1237,9 @@ class SubmapLoopCloser:
         map_pose = self._map_transforms()
         est_arr = np.stack([map_pose(k) for k in range(len(kfs))])
         if cfg.final_rebuild_grids:
-            _t = _time.perf_counter()
-            self.rebuild_grids(est_arr)
-            self.prof["grid_build"] += _time.perf_counter() - _t
+            with self.rec.timed("slam.backend.grid_build") as _t:
+                self.rebuild_grids(est_arr)
+            self.prof["grid_build"] += _t.seconds
         have = {
             (c.i, c.j)
             for c in self.closures
@@ -1478,11 +1481,13 @@ class SubmapLoopCloser:
     def optimize(self, iterations: int = 20, gnc_scale: float = 1.0):
         if len(self.pg_poses) < 2:
             return
-        self._gate_consistent_loops()
-        g = self._build_pg_data()
-        new_poses = self._solve(g, iterations, gnc_scale).poses.cpu().numpy()
-        for k in range(len(self.pg_poses)):
-            self.pg_poses[k] = new_poses[k]
+        with self.rec.span("slam.backend.pg_solve"):
+            self._gate_consistent_loops()
+            g = self._build_pg_data()
+            new_poses = self._solve(g, iterations,
+                                    gnc_scale).poses.cpu().numpy()
+            for k in range(len(self.pg_poses)):
+                self.pg_poses[k] = new_poses[k]
 
     def _solve(self, g, iterations: int, gnc_scale: float):
         """Route one pose-graph solve (the product path replacing
@@ -1499,8 +1504,11 @@ class SubmapLoopCloser:
         )
         if not blocked:
             return solvers.optimize_pose_graph(
-                g, cfg.dcs_phi, iterations, gnc_init_scale=gnc_scale
+                g, cfg.dcs_phi, iterations, gnc_init_scale=gnc_scale,
+                rec=self.rec,
             )
+        self.rec.count("pg.solves")
+        self.rec.count("pg.iterations", iterations)
         # N is a power of two, and so is dist_block_size: the blocks
         # tile the padded graph
         n_blocks = max(1, N // max(1, cfg.dist_block_size))

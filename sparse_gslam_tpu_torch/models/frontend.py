@@ -32,6 +32,7 @@ from ..ops.multicloud import OdomErrorPropagator
 from ..utils import se2
 from ..utils.chi2 import chi2_quantile
 from ..utils.config import SlamConfig
+from ..utils.trace import Recorder
 from .range_data import RangeData2D
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -80,9 +81,12 @@ class Frontend:
     runs on `device` (float64) whatever `config.frontend_on_host` says:
     the port never moves it to the CPU behind the caller's back."""
 
-    def __init__(self, config: SlamConfig, device="cuda"):
+    def __init__(self, config: SlamConfig, device="cuda", rec=None):
+        """rec: the utils.trace.Recorder of the owning system (a fresh
+        one, off, without)."""
         self.config = config
         self.device = torch.device(device)
+        self.rec = rec if rec is not None else Recorder()
         self.odom_prop = OdomErrorPropagator(
             config.std_x, config.std_y, config.std_w,
             getattr(config, "noise_model", "reference"),
@@ -103,7 +107,6 @@ class Frontend:
             config.scan_size
         )
         self.table = np.stack([np.cos(angles), np.sin(angles)], axis=1)
-        self.solver_calls = 0
         self.rejected_ticks = 0
 
     # ------------------------------------------------------------------
@@ -192,25 +195,25 @@ class Frontend:
 
         # data association + observation edges (drone.cpp:134-141)
         rot = se2.rotation_matrix(cor_pose[2])
-        for s in range(segments.n):
-            start_w = rot @ segments.start[s] + cor_pose[:2]
-            end_w = rot @ segments.end[s] + cor_pose[:2]
-            lm_idx = self._merge_line(start_w, end_w)
-            self.obs_edges.append(
-                ObsEdge(
-                    pose_idx=new_pose_idx,
-                    lm_idx=lm_idx,
-                    meas=segments.rhotheta[s].copy(),
-                    info=np.linalg.inv(segments.cov[s]),
-                    start_bl=segments.start[s].copy(),
-                    end_bl=segments.end[s].copy(),
+        with self.rec.span("slam.frontend.update"):
+            for s in range(segments.n):
+                start_w = rot @ segments.start[s] + cor_pose[:2]
+                end_w = rot @ segments.end[s] + cor_pose[:2]
+                lm_idx = self._merge_line(start_w, end_w)
+                self.obs_edges.append(
+                    ObsEdge(
+                        pose_idx=new_pose_idx,
+                        lm_idx=lm_idx,
+                        meas=segments.rhotheta[s].copy(),
+                        info=np.linalg.inv(segments.cov[s]),
+                        start_bl=segments.start[s].copy(),
+                        end_bl=segments.end[s].copy(),
+                    )
                 )
-            )
         self.odom_prop.reset()
 
         # incremental LM solve over the active window (drone.cpp:146-156)
         chi2, dof = self._solve()
-        self.solver_calls += 1
 
         # chi^2 consistency gate (drone.cpp:161-189)
         if dof > 0 and chi2 > chi2_quantile(0.99, dof):
@@ -230,7 +233,8 @@ class Frontend:
                 self.landmarks.pop()
             self.need_reinit = True
         else:
-            self._update_endpoints()
+            with self.rec.span("slam.frontend.update"):
+                self._update_endpoints()
         self.last_landmark_edge = len(self.obs_edges)
 
     # ------------------------------------------------------------------
@@ -298,6 +302,30 @@ class Frontend:
         Returns (chi2, dof).
         """
         ws = self.window_start
+        with self.rec.span("slam.frontend.graph"):
+            g, lm_map = self._window_graph()
+        with self.rec.span("slam.frontend.lm"):
+            g_opt, chi2, dof = solvers.optimize_landmark_graph(
+                g, 15, rec=self.rec)
+        with self.rec.span("slam.frontend.readback"):
+            # one device-to-host copy for everything the host reads back
+            out = torch.cat([
+                g_opt.poses.reshape(-1), g_opt.lms.reshape(-1),
+                chi2.reshape(1), dof.reshape(1).to(chi2.dtype),
+            ]).cpu().numpy()
+            P, L = g.poses.shape[0], g.lms.shape[0]
+            new_poses = out[: 3 * P].reshape(P, 3)
+            new_lms = out[3 * P : 3 * P + 2 * L].reshape(L, 2)
+            for i in range(len(self.keyframes) - ws):
+                self.keyframes[ws + i].estimate = new_poses[i].copy()
+            for lid, k in lm_map.items():
+                self.landmarks[lid].rhotheta = new_lms[k].copy()
+        return float(out[-2]), int(out[-1])
+
+    def _window_graph(self):
+        """The active window as a padded LMGraphData on the frontend's
+        device, and the map from landmark index to its row."""
+        ws = self.window_start
         n_poses = len(self.keyframes) - ws
         lm_map = self._active_lm_ids()
         n_lms = len(lm_map)
@@ -352,19 +380,7 @@ class Frontend:
             ),
             self.device,
         )
-        g_opt, chi2, dof = solvers.optimize_landmark_graph(g, 15)
-        # one device-to-host copy for everything the host reads back
-        out = torch.cat([
-            g_opt.poses.reshape(-1), g_opt.lms.reshape(-1),
-            chi2.reshape(1), dof.reshape(1).to(chi2.dtype),
-        ]).cpu().numpy()
-        new_poses = out[: 3 * P].reshape(P, 3)
-        new_lms = out[3 * P : 3 * P + 2 * L].reshape(L, 2)
-        for i in range(n_poses):
-            self.keyframes[ws + i].estimate = new_poses[i].copy()
-        for lid, k in lm_map.items():
-            self.landmarks[lid].rhotheta = new_lms[k].copy()
-        return float(out[-2]), int(out[-1])
+        return g, lm_map
 
     def relative_chain_info(
         self, start_idx: int, end_idx: int, granularity: int = 6

@@ -42,6 +42,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.se2 import wrap_angle
+from ..utils.trace import Recorder
 from .line_geometry import transform_line
 
 # Normal-equation assembly needs full-precision products: no TF32 on
@@ -590,7 +591,7 @@ def _lm_apply(g: LMGraphData, dp, dl) -> LMGraphData:
 
 def optimize_landmark_graph(
     g: LMGraphData, iterations: int = 15, tau: float = 1e-5,
-    tridiag_threshold: int = 128, rtol: float = 1e-7,
+    tridiag_threshold: int = 128, rtol: float = 1e-7, rec=None,
 ):
     """Levenberg-Marquardt with g2o's damping schedule
     (OptimizationAlgorithmLevenberg): initial lambda = tau * max diag(H),
@@ -606,11 +607,23 @@ def optimize_landmark_graph(
     rtol > 0 stops once an accepted step improves chi2 by less than
     rtol relatively (or lambda passes 1e10); rtol=0 runs exactly
     `iterations` steps.
+
+    rec: the caller's utils.trace.Recorder. Counted: lm.solves,
+    lm.iterations, lm.tridiag, the padded (P, L, E) under the tally
+    lm.shapes and, where rtol > 0 (the one host read of each step
+    reads them), lm.rejected and why the solve ended (lm.stop.rtol,
+    lm.stop.lambda, lm.stop.cap). Spans: slam.lm.step per iteration,
+    with slam.lm.assemble, slam.lm.solve, slam.lm.chi2 and
+    slam.lm.decide (which ends in the host read).
     """
+    rec = rec if rec is not None else Recorder()
     chi2_0, dof = lm_graph_chi2(g)
     use_tridiag = g.poses.shape[0] >= tridiag_threshold
-
+    rec.count("lm.solves")
+    rec.tally("lm.shapes", (g.poses.shape[0], g.lms.shape[0],
+                            g.obs_pose.shape[0]))
     if use_tridiag:
+        rec.count("lm.tridiag")
         D0, _, _, Hll0, _, _ = _lm_tridiag_assemble(g)
         pose_diag = torch.diagonal(D0, dim1=-2, dim2=-1)
     else:
@@ -624,41 +637,57 @@ def optimize_landmark_graph(
     lam = tau * diag_max
     ni = torch.full_like(lam, 2.0)
 
-    def step(g_cur, chi2_cur, lam, ni):
-        if use_tridiag:
-            parts = _lm_tridiag_assemble(g_cur)
-            bp, bl = parts[2], parts[4]
-            dp, dl, _, _ = _schur_solve_tridiag(g_cur, parts, lam)
-        else:
-            Hpp, bp, Hll, bl, Hpl_e = _assemble_lm_system(g_cur)
-            dp, dl = _schur_solve(g_cur, Hpp, bp, Hll, bl, Hpl_e, lam)
-        g_new = _lm_apply(g_cur, dp, dl)
-        chi2_new, _ = lm_graph_chi2(g_new)
-        # gain ratio rho = (chi2_cur - chi2_new) / (d^T (lam d + b))
-        lin = (dp * (lam * dp + bp)).sum() + (dl * (lam * dl + bl)).sum()
-        rho = (chi2_cur - chi2_new) / torch.clamp(lin, min=1e-12)
-        accept = (rho > 0.0) & torch.isfinite(chi2_new)
-        factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-        lam_next = torch.where(accept, lam * factor, lam * ni)
-        ni_next = torch.where(accept, 2.0, ni * 2.0)
-        g_next = g_cur._replace(
-            poses=torch.where(accept, g_new.poses, g_cur.poses),
-            lms=torch.where(accept, g_new.lms, g_cur.lms),
-        )
-        chi2_next = torch.where(accept, chi2_new, chi2_cur)
-        rel_impr = torch.where(
-            accept,
-            (chi2_cur - chi2_new) / torch.clamp(chi2_cur, min=1e-30),
-            torch.inf,
-        )
-        return g_next, chi2_next, lam_next, ni_next, rel_impr
-
     chi2 = chi2_0
+    stop = "lm.stop.cap"
     for _ in range(iterations):
-        g, chi2, lam, ni, rel_impr = step(g, chi2, lam, ni)
-        # one host sync per iteration decides the early stop
-        if rtol > 0.0 and bool((rel_impr < rtol) | (lam > 1e10)):
-            break
+        with rec.span("slam.lm.step"):
+            with rec.span("slam.lm.assemble"):
+                if use_tridiag:
+                    parts = _lm_tridiag_assemble(g)
+                    bp, bl = parts[2], parts[4]
+                else:
+                    Hpp, bp, Hll, bl, Hpl_e = _assemble_lm_system(g)
+            with rec.span("slam.lm.solve"):
+                if use_tridiag:
+                    dp, dl, _, _ = _schur_solve_tridiag(g, parts, lam)
+                else:
+                    dp, dl = _schur_solve(g, Hpp, bp, Hll, bl, Hpl_e, lam)
+                g_new = _lm_apply(g, dp, dl)
+            with rec.span("slam.lm.chi2"):
+                chi2_new, _ = lm_graph_chi2(g_new)
+            with rec.span("slam.lm.decide"):
+                # gain ratio rho = (chi2 - chi2_new) / (d^T (lam d + b))
+                lin = ((dp * (lam * dp + bp)).sum()
+                       + (dl * (lam * dl + bl)).sum())
+                rho = (chi2 - chi2_new) / torch.clamp(lin, min=1e-12)
+                accept = (rho > 0.0) & torch.isfinite(chi2_new)
+                factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3,
+                                     min=1.0 / 3.0)
+                lam = torch.where(accept, lam * factor, lam * ni)
+                ni = torch.where(accept, 2.0, ni * 2.0)
+                g = g._replace(
+                    poses=torch.where(accept, g_new.poses, g.poses),
+                    lms=torch.where(accept, g_new.lms, g.lms),
+                )
+                rel_impr = torch.where(
+                    accept,
+                    (chi2 - chi2_new) / torch.clamp(chi2, min=1e-30),
+                    torch.inf,
+                )
+                chi2 = torch.where(accept, chi2_new, chi2)
+                # one host read per iteration decides the early stop
+                if rtol > 0.0:
+                    small, damped, took = torch.stack(
+                        (rel_impr < rtol, lam > 1e10, accept)).tolist()
+        rec.count("lm.iterations")
+        if rtol > 0.0:
+            if not took:
+                rec.count("lm.rejected")
+            if small or damped:
+                stop = "lm.stop.rtol" if small else "lm.stop.lambda"
+                break
+    if rtol > 0.0:
+        rec.count(stop)
     return g, chi2, dof
 
 
@@ -817,12 +846,17 @@ def gnc_phi_schedule(phi, iterations: int, init_scale: float,
 
 def optimize_pose_graph(
     g: PoseGraphData, phi: float, iterations: int = 20,
-    gnc_init_scale: float = 1.0,
+    gnc_init_scale: float = 1.0, rec=None,
 ) -> PoseGraphData:
     """Gauss-Newton with DCS-reweighted closures, fixed iteration count
     (pose_graph.opt.optimize(20), submap_loop_closer.cpp:286-288), on
     the device of `g`; no host synchronization. gnc_init_scale > 1
-    enables graduated non-convexity (gnc_phi_schedule)."""
+    enables graduated non-convexity (gnc_phi_schedule). rec: the
+    caller's utils.trace.Recorder, which counts pg.solves and
+    pg.iterations."""
+    if rec is not None:
+        rec.count("pg.solves")
+        rec.count("pg.iterations", iterations)
     phis = gnc_phi_schedule(phi, iterations, gnc_init_scale,
                             dtype=g.poses.dtype, device=g.poses.device)
     for k in range(iterations):

@@ -113,7 +113,9 @@ def run(argv=None) -> RunResult:
     ap.add_argument(
         "--profile", default="",
         help="write a torch.profiler trace of the run (CPU and, on the "
-        "card, CUDA activity) to this directory as a Chrome trace",
+        "card, CUDA activity) to this directory as a Chrome trace, "
+        "with the system's recorder on (the program's slam.* spans in "
+        "the trace), and print the recorder's counters",
     )
     ap.add_argument(
         "--device", default="cuda", choices=("cuda", "cpu"),
@@ -144,6 +146,7 @@ def run(argv=None) -> RunResult:
     system = SlamSystem(slam_cfg, ls_cfg, enable_backend=not args.no_backend,
                         device=args.device, accel_branch=args.accel_branch)
     system.timing = TimingWriter(prefix)
+    system.rec.enabled = bool(args.profile)
     if args.resume:
         from .utils.checkpoint import load_checkpoint
 
@@ -243,6 +246,16 @@ def run(argv=None) -> RunResult:
         f"{fx * 1e3:.1f} ms (n={fn_}), backend mean {bm * 1e3:.1f} ms "
         f"/ max {bx * 1e3:.1f} ms (n={bn_}); compile total 0.0 s"
     )
+    if args.profile:
+        from .eval.profile import shape_counts
+
+        counts = system.rec.counts
+        print("counters: " + ", ".join(
+            f"{k} {v}" for k, v in sorted(counts.items())
+            if k.startswith(("lm.", "pg."))))
+        print("lm shapes (P, L, E) x solves: " + ", ".join(
+            f"({p}, {l}, {e}) x {n}" for p, l, e, n in shape_counts(
+                system.rec)))
     if args.realtime:
         rt = system.realtime
         print(

@@ -5,9 +5,9 @@
   closed-loop simulate_controlled and the wall follower
   (models/wall_follower.py) give equal arrays;
 - the timing tables (eval/timing.py): analyze() gives equal stats on
-  timing files the port's TimingWriter wrote (its .fflag/.bflag are
-  all zero, so the steady columns equal the raw ones) and on files
-  with compile flags set;
+  timing files the port's TimingWriter wrote (it writes no
+  .fflag/.bflag, so the steady columns equal the raw ones) and on
+  files with compile flags set beside them;
 - the metricEvaluator replacement (eval/cli.py) writes the same
   _trans_error.log and _rot_error.log bytes;
 - the Crazyflie frame source and command client (io/crazyflie.py): the
@@ -17,6 +17,7 @@
 All comparisons are exact."""
 import dataclasses
 import math
+import os
 
 import numpy as np
 import pytest
@@ -90,8 +91,8 @@ def test_simulate_controlled_equal():
 
 def write_timing(prefix, flags):
     """Seeded .ftime/.btime/.dtime through the port's TimingWriter; with
-    `flags`, .fflag/.bflag marking some ticks as compile ticks, as the
-    JAX runner writes them."""
+    `flags`, .fflag/.bflag beside them marking some ticks as compile
+    ticks, as the JAX runner writes them."""
     rng = np.random.default_rng(7)
     w = TimingWriter(prefix)
     for k in range(300):
@@ -102,7 +103,7 @@ def write_timing(prefix, flags):
     w.close()
     if flags:
         for ext, every in ((".fflag", 40), (".bflag", 5)):
-            n = len(np.loadtxt(prefix + ext, ndmin=1))
+            n = len(np.loadtxt(prefix + ext[:2] + "time", ndmin=1))
             np.savetxt(prefix + ext, (np.arange(n) % every == 0)
                        .astype(int), fmt="%d")
 
@@ -115,7 +116,9 @@ def test_timing_analyze_equal(tmp_path, flags):
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert str(t) == str(j)
     if not flags:
-        # the port's runs have no compile ticks
+        # the port's runs have no compile ticks, and no sidecars
+        assert not os.path.exists(prefix + ".fflag")
+        assert not os.path.exists(prefix + ".bflag")
         assert t.n_compile_ticks == 0
         assert t.steady_mean_frontend == t.mean_frontend
         assert t.steady_max_backend == t.max_backend
