@@ -17,8 +17,10 @@ loop-closing backend and its final cleanup), with the system's recorder
 - the LM solve's share of it: solves and LM iterations (the recorder's
   lm.solves and lm.iterations), and the wall time of the
   slam.frontend.lm spans (each ends in the LM's last host read); every
-  counter under `counters`, and the padded (P, L, E) shapes the LM
-  solved with their counts under `lm_shapes`;
+  counter under `counters` (the pins' outcomes `pins.<reason>` among
+  them), the padded (P, L, E) shapes the LM solved with their counts
+  under `lm_shapes`, and the backend's refinement launches by caller
+  and padded N under `refine_n`;
 - with --backend, the backend tick's mean and max, the final
   cleanup's seconds and the backend's own split by phase
   (`SubmapLoopCloser.prof`);
@@ -137,6 +139,7 @@ def profile_run(dataset_dir, dataset_name, device, window, backend=False):
         "lm_ms_per_iteration": lm_s / max(iters, 1) * 1e3,
         "counters": dict(sorted(counts.items())),
         "lm_shapes": shape_counts(rec),
+        "refine_n": refine_counts(rec),
         **be,
         "window": prof_summary,
     }
@@ -146,6 +149,12 @@ def shape_counts(rec):
     """[P, L, E, solves] of each padded shape the LM solved, most
     solved first."""
     return [[*key, n] for key, n in rec.tallies("lm.shapes").most_common()]
+
+
+def refine_counts(rec):
+    """[caller, padded N, launches] of the backend's refinements
+    (pin, closure, chain, map), most frequent first."""
+    return [[*key, n] for key, n in rec.tallies("refine.n").most_common()]
 
 
 def program_breakdown(prof, prefix: str = SPAN_PREFIX) -> dict:

@@ -448,12 +448,19 @@ class SubmapLoopCloser:
             for c in candidates
         ]
 
+    def _refine_query(self, caller: str, query):
+        """_padded_query of a refinement's query, tallied under
+        refine.n as (caller, padded N): one per refinement launch."""
+        pts, valid = _padded_query(query, self.device)
+        self.rec.tally("refine.n", (caller, int(pts.shape[0])))
+        return pts, valid
+
     def _refine_high(self, sm: Submap, query, pose):
         """High-res refinement of a correlative match (the Ceres
         replacement): (refined (3,), censi_cov (3,3)) on the host."""
         refined, censi_cov, _ = matching.refine_pose_cov(
             sm.high_res, sm.high_origin, 0.05,
-            *_padded_query(query, self.device),
+            *self._refine_query("closure", query),
             torch.tensor(np.asarray(pose, np.float32), device=self.device),
         )
         return _host(refined, censi_cov)
@@ -672,16 +679,20 @@ class SubmapLoopCloser:
         if stride >= 2 * spec.n_linear:
             # exact B&B-root bound from the pooled pyramid level (see
             # pin_bound_host for the coverage at stride == 2*n_linear)
-            bound = matching.pin_bound_host(
-                self._pooled_grid_host(sm), origin, res, query, thetas,
-                spec.n_linear, stride=stride,
-            )
+            with self.rec.timed("slam.backend.pin_bound") as _t:
+                bound = matching.pin_bound_host(
+                    self._pooled_grid_host(sm), origin, res, query, thetas,
+                    spec.n_linear, stride=stride,
+                )
+            self.prof["pin_bound"] += _t.seconds
             if bound < cfg.kf_min_score:
                 return None, None, None, "bound"
-        scores = matching.correlate_window_host(
-            self._score_grid_host(sm), origin, res, query, thetas,
-            spec.n_linear,
-        )
+        with self.rec.timed("slam.backend.pin_window") as _t:
+            scores = matching.correlate_window_host(
+                self._score_grid_host(sm), origin, res, query, thetas,
+                spec.n_linear,
+            )
+        self.prof["pin_window"] += _t.seconds
         return self._pin_accept(scores, thetas, spec, seed, sm, query, res)
 
     def _pin_accept(self, scores, thetas, spec, seed, sm: Submap, query,
@@ -691,13 +702,16 @@ class SubmapLoopCloser:
         covariance, GN refinement on the high-res grid, overlap + basin
         gates, hybrid covariance."""
         cfg = self.config
-        k, i, jx = matching._argmax_center_tiebreak(scores, spec.n_linear)
-        sc = float(scores[k, i, jx])
-        if sc < cfg.kf_min_score:
+        with self.rec.timed("slam.backend.pin_cov") as _t:
+            k, i, jx = matching._argmax_center_tiebreak(scores,
+                                                        spec.n_linear)
+            sc = float(scores[k, i, jx])
+            wcov = (matching.score_volume_cov(scores, thetas, seed[2], res,
+                                              spec.n_linear)
+                    if sc >= cfg.kf_min_score else None)
+        self.prof["pin_cov"] += _t.seconds
+        if wcov is None:
             return None, None, None, "score"
-        wcov = matching.score_volume_cov(
-            scores, thetas, seed[2], res, spec.n_linear
-        )
         pose0 = np.array(
             [
                 (i - spec.n_linear) * res + seed[0],
@@ -705,12 +719,15 @@ class SubmapLoopCloser:
                 thetas[k],
             ]
         )
-        refined, censi, probs = matching.refine_pose_cov(
-            sm.high_res, sm.high_origin, 0.05,
-            *_padded_query(query, self.device),
-            torch.tensor(pose0.astype(np.float32), device=self.device),
-        )
-        refined, censi, probs = _host(refined, censi, probs)
+        # ends in the host read, so it times the kernel too
+        with self.rec.timed("slam.backend.pin_refine") as _t:
+            refined, censi, probs = matching.refine_pose_cov(
+                sm.high_res, sm.high_origin, 0.05,
+                *self._refine_query("pin", query),
+                torch.tensor(pose0.astype(np.float32), device=self.device),
+            )
+            refined, censi, probs = _host(refined, censi, probs)
+        self.prof["pin_refine"] += _t.seconds
         # fraction of query points on occupied high-res cells at the
         # refined pose
         if float((probs[: len(query)] > 0.55).mean()) < cfg.kf_min_overlap:
@@ -799,9 +816,11 @@ class SubmapLoopCloser:
         (None, reason, None) where reason is a stats-counter key."""
         fine = ((sm.high_res, sm.high_origin, 0.05) if high_res
                 else (sm.probs, sm.origin, float(sm.resolution)))
+        # high_res only under refine_map; the chain edges refine on the
+        # probability grid
         refined, cov, probs = matching.refine_pose_cov_two_stage(
             sm.score_grid, sm.origin, float(sm.resolution), *fine,
-            *_padded_query(query, self.device),
+            *self._refine_query("map" if high_res else "chain", query),
             torch.tensor(np.asarray(seed, np.float32), device=self.device),
         )
         refined, cov, probs = _host(refined, cov, probs)
@@ -828,7 +847,6 @@ class SubmapLoopCloser:
         branch of the JAX package: host numpy window correlation
         (_kf_edges_host)."""
         cfg = self.config
-        stats = self.kf_stats
         if not cfg.kf_refine or not self.submaps:
             return 0
         kfs = self.frontend.keyframes
@@ -845,7 +863,7 @@ class SubmapLoopCloser:
                     smi = si
                     break
             if smi is None:
-                stats["no_submap"] += 1
+                self._kf_stat("no_submap")
                 continue
             # query = short multicloud centered on j (a single 11-beam
             # keyframe store aliases to its neighbour's beam pattern)
@@ -858,7 +876,7 @@ class SubmapLoopCloser:
                 min(j + 2, len(kfs)), returns_only=True,
             )
             if len(query) < 12:
-                stats["few_points"] += 1
+                self._kf_stat("few_points")
                 continue
             if len(query) > 512:  # bound the GN cost
                 query = query[
@@ -872,20 +890,20 @@ class SubmapLoopCloser:
         if not pending:
             return 0
         if self.accel_branch:
-            return self._kf_edges_device(pending, stats)
-        return self._kf_edges_host(pending, stats)
+            return self._kf_edges_device(pending)
+        return self._kf_edges_host(pending)
 
-    def _kf_edges_host(self, pending, stats) -> int:
+    def _kf_edges_host(self, pending) -> int:
         """Direct numpy window correlation against host-cached grids."""
         made = 0
         for j, smi, query, seed in pending:
             sm = self.submaps[smi]
             refined, cov, score, why = self._pin_match_grid(sm, query, seed)
             made += self._pin_finish(j, sm, query, refined, cov,
-                                     score, why, stats)
+                                     score, why)
         return made
 
-    def _kf_edges_device(self, pending, stats) -> int:
+    def _kf_edges_device(self, pending) -> int:
         """The accelerator branch's pins: matching.pin_eval_batch scores
         the windows on the cached spectra, takes the argmax, the volume
         covariance, the high-res refinement and the overlap for up to 8
@@ -942,7 +960,7 @@ class SubmapLoopCloser:
                         cfg.kf_refine_sigma_xy, cfg.kf_refine_sigma_th,
                     )
                     made += self._pin_finish(j, self.submaps[smi], query,
-                                             refined, cov, score, why, stats)
+                                             refined, cov, score, why)
             self.prof["kf_accept"] += _t.seconds
         return made
 
@@ -1000,12 +1018,17 @@ class SubmapLoopCloser:
                                 torch.stack(origs + origs[-1:] * pad))
         return self._high_stack[1], self._high_stack[2]
 
-    def _pin_finish(self, j, sm, query, refined, cov, score, why,
-                    stats) -> int:
+    def _kf_stat(self, key: str) -> None:
+        """One more pin outcome `key` in kf_stats and in the counter
+        pins.<key>, so that the two agree."""
+        self.kf_stats[key] += 1
+        self.rec.count("pins." + key)
+
+    def _pin_finish(self, j, sm, query, refined, cov, score, why) -> int:
         """Book a pin result: count the reject reason or append the
         closure edge."""
         if refined is None:
-            stats[why] += 1
+            self._kf_stat(why)
             return 0
         self.closures.append(
             Closure(
@@ -1013,7 +1036,7 @@ class SubmapLoopCloser:
                 info=np.linalg.inv(cov), kind="kf",
             )
         )
-        stats["accepted"] += 1
+        self._kf_stat("accepted")
         if os.environ.get("SLAM_LOG_MATCHES"):
             print(
                 f"[kfpin] kf{sm.anchor_idx}->kf{j} n={len(query)} "

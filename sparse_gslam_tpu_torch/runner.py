@@ -247,15 +247,17 @@ def run(argv=None) -> RunResult:
         f"/ max {bx * 1e3:.1f} ms (n={bn_}); compile total 0.0 s"
     )
     if args.profile:
-        from .eval.profile import shape_counts
+        from .eval.profile import refine_counts, shape_counts
 
         counts = system.rec.counts
         print("counters: " + ", ".join(
             f"{k} {v}" for k, v in sorted(counts.items())
-            if k.startswith(("lm.", "pg."))))
+            if k.startswith(("lm.", "pg.", "pins."))))
         print("lm shapes (P, L, E) x solves: " + ", ".join(
             f"({p}, {l}, {e}) x {n}" for p, l, e, n in shape_counts(
                 system.rec)))
+        print("refine.n (caller, N) x launches: " + ", ".join(
+            f"({c}, {nb}) x {n}" for c, nb, n in refine_counts(system.rec)))
     if args.realtime:
         rt = system.realtime
         print(

@@ -38,7 +38,8 @@ N_FRAMES = 60
 PROF_KEYS = {"kf_edges", "grid_build", "chain_edges", "match_snapshot",
              "match_search", "match_correlate", "match_refine",
              "match_apply", "kf_stack", "kf_window", "kf_accept",
-             "refine_map"}
+             "refine_map", "pin_bound", "pin_window", "pin_cov",
+             "pin_refine"}
 LM_CHILDREN = ["slam.lm.assemble", "slam.lm.solve", "slam.lm.chi2",
                "slam.lm.decide"]
 
