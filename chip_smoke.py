@@ -12,11 +12,12 @@ their failures fail it after the kernels line):
 
 1. device  -- the card's name and count, and nvidia-smi's name and
    power limit (a raw line of its own as well). Fails without CUDA.
-2. build   -- compiles both kernels with nvcc (sm_90a), started
-   together: csrc/insert_rays.cu and csrc/refine_pose.cu (with
-   --fmad=false), and the refinement's host build
-   (csrc/refine_pose_host.cpp, g++); prints the seconds and the
-   -Xptxas -v reports.
+2. build   -- compiles the three kernels with nvcc (sm_90a), started
+   together: csrc/insert_rays.cu, csrc/refine_pose.cu and
+   csrc/pin_window.cu (the last two with --fmad=false), and the host
+   builds of the refinement and the pin window (csrc/refine_pose_host.cpp,
+   csrc/pin_window_host.cpp, g++); prints the seconds and the -Xptxas -v
+   reports.
 3. kernel  -- the CUDA insertion kernel against its plain torch twin on
    the card, at every tile size it is built for, on seeded cases from
    the test sizes up to the largest map the code allows (G=2048,
@@ -47,11 +48,13 @@ their failures fail it after the kernels line):
    chain edges, DCS pose graph; --eval --map-png) on sim-office on cuda
    under SLAM_LOG_MATCHES=1. Every insertion and every refinement of
    the run is recorded and replayed through its plain version
-   (torch.equal each); the insertion launches must be 105 (52 in
-   precompute, 52 in rebuild_grids, 1 for the map) and the refinement
-   launches one per refinement. compare_run holds the output against
-   the JAX CPU run's (WORLDS): the counts and the
-   `backend:`/`closures:` lines equal, the decision lines (written to
+   (torch.equal each), and every pin window the kernel scored through
+   correlate_window_host (numpy; np.array_equal on the volume); the
+   insertion launches must be 105 (52 in precompute, 52 in
+   rebuild_grids, 1 for the map), the refinement launches one per
+   refinement and the pin window launches one per window. compare_run
+   holds the output against the JAX CPU run's (WORLDS): the counts and
+   the `backend:`/`closures:` lines equal, the decision lines (written to
    OUT/sim-office.decisions.log) equal to its log
    (sparse_gslam_tpu_torch/data/sim-office-full.decisions), the ATE
    line equal, and the .result within FULL_RESULT_ATOL of
@@ -99,6 +102,7 @@ their failures fail it after the kernels line):
    paced at twice the log's 5 Hz, the backend thread and the live-view
    thread each on a CUDA stream of its own); every insertion and
    refinement of the backend and main threads replayed torch.equal,
+   every pin window np.array_equal to correlate_window_host,
    and LIVE_VIEW_REPLAYS of the live view's map renders; the frontend tick
    (mean, p99, max) beside the batch run's of phase 6, late frames,
    backend ticks, the `backend:`/`closures:`/ATE lines (reported, not
@@ -108,9 +112,9 @@ their failures fail it after the kernels line):
 12. resume -- the JAX package's checkpoint of sim-office at frame 330
    (data/sim-office-ckpt330.npz, scripts/make_office_checkpoint.py)
    loaded on the card (grids rebuilt by the kernel, each insertion
-   torch.equal), continued 60 frames against the JAX continuation
-   (RESUME_ATOL); saved by the port, loaded and continued again, the
-   same.
+   torch.equal, each pin window equal to numpy's), continued 60 frames
+   against the JAX continuation (RESUME_ATOL); saved by the port,
+   loaded and continued again, the same.
 13. blocked -- the keyframe-partitioned pose-graph solver on the card on
    synthetic chains of 2k and 16k poses (BLOCKED_CASES), against the
    float64 C++ solver on the host at the same iteration count and, at
@@ -169,7 +173,11 @@ their failures fail it after the kernels line):
    the sim-killian run's calls (timed_launches); and the refinement
    kernel's batched mode (refine_pins: the accelerator branch's device
    pin batches, one launch per batch, each replayed through the batched
-   plain version), summed over the paths that launch it.
+   plain version), summed over the paths that launch it; and the pin
+   window kernel (pin_window: launches by path, every window of every
+   path against correlate_window_host, and over the sim-killian run's
+   windows the kernel's time, numpy's on the card's host and the bound;
+   by_path has each full run's). sim-killian's run must launch it.
 
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX
 or of the JAX package.
@@ -209,6 +217,7 @@ from sparse_gslam_tpu_torch.models.slam import SlamSystem
 from sparse_gslam_tpu_torch.ops import grid as grid_mod
 from sparse_gslam_tpu_torch.ops import grid_cuda, refine_cuda
 from sparse_gslam_tpu_torch.ops import matching as matching_mod
+from sparse_gslam_tpu_torch.ops import pin_window_cuda
 from sparse_gslam_tpu_torch.ops import refine_exact
 from sparse_gslam_tpu_torch.ops import solvers as solvers_mod
 from sparse_gslam_tpu_torch import graft_entry
@@ -637,6 +646,9 @@ REPLAY_TIMINGS = 3
 # float32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+# float64 adds outside the tensor cores: the data sheet's 34 TFLOP/s
+# counts an FMA as two operations, and an add is one
+PEAK_F64_ADDS_PER_S = 17e12
 # the first version of the kernel (one block for the whole grid): its ms
 # on an H100 80GB HBM3 at 700 W, final call of PR 1 (PERF.md)
 V1_MS = {"slice_g320_s1024": 2.798, "max_g2048_s4096": 17.495,
@@ -675,19 +687,23 @@ def phase_device():
 
 
 def phase_build():
-    """Both kernels' nvcc builds, started together, and the g++ build of
-    the refinement's host library."""
+    """The three kernels' nvcc builds, started together, and the g++
+    builds of the refinement's and the pin window's host libraries."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(5) as pool:
         jobs = {"insert_rays": pool.submit(grid_cuda.build),
                 "refine_pose": pool.submit(refine_cuda.build),
-                "refine_pose_host": pool.submit(refine_cuda.build_host)}
+                "refine_pose_host": pool.submit(refine_cuda.build_host),
+                "pin_window": pool.submit(pin_window_cuda.build),
+                "pin_window_host": pool.submit(pin_window_cuda.build_host)}
         results = {k: v.result() for k, v in jobs.items()}
     sources = {"insert_rays": grid_cuda.SOURCE,
                "refine_pose": refine_cuda.SOURCE,
-               "refine_pose_host": refine_cuda.HOST_SOURCE}
+               "refine_pose_host": refine_cuda.HOST_SOURCE,
+               "pin_window": pin_window_cuda.SOURCE,
+               "pin_window_host": pin_window_cuda.HOST_SOURCE}
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
           "kernels": [{
               "name": k,
@@ -1531,6 +1547,113 @@ def replay_pins(calls):
             "pins_refined": pins}
 
 
+class WindowRecorder:
+    """Wraps ops/matching.correlate_window (the host pins' window
+    correlation: the pin_window kernel where the score grid is on the
+    card) to keep each card call's inputs (a copy of the grid, made on
+    the card's stream, so that no later rebuild changes it) and its
+    volume, for replay_windows. `threads` counts them by thread name."""
+
+    def __init__(self):
+        self.calls = []
+        self.threads = {}
+        self._lock = threading.Lock()
+        self._orig = matching_mod.correlate_window
+
+    def _correlate(self, score_grid, origin, resolution, points, thetas,
+                   n_linear, rec):
+        out = self._orig(score_grid, origin, resolution, points, thetas,
+                         n_linear, rec)
+        if isinstance(score_grid, torch.Tensor) and score_grid.is_cuda:
+            name = threading.current_thread().name
+            args = (score_grid.clone(), np.array(origin, np.float64),
+                    float(resolution), np.array(points, np.float64),
+                    np.array(thetas, np.float64), int(n_linear))
+            with self._lock:
+                self.calls.append((args, out))
+                self.threads[name] = self.threads.get(name, 0) + 1
+        return out
+
+    @contextlib.contextmanager
+    def active(self):
+        matching_mod.correlate_window = self._correlate
+        try:
+            yield self
+        finally:
+            matching_mod.correlate_window = self._orig
+
+
+def window_grid_cells(cells, size, n_linear):
+    """The distinct cells of a (size, size) grid that one window reads:
+    each of the (2, R, N) query cells (clipped as the kernel takes them)
+    shifted by every offset of the W x W window, kept where inside."""
+    w = 2 * n_linear + 1
+    o = n_linear + 1
+    h = size + 2 * o
+    hit = np.zeros((h, h), np.int64)
+    hit[cells[0].ravel() + o, cells[1].ravel() + o] = 1
+    # a cell is read when a query cell lies within n_linear of it along
+    # both axes: a W x W box sum of the hits, by prefix sums
+    c = np.zeros((h + 1, h + 1), np.int64)
+    c[1:, 1:] = hit.cumsum(0).cumsum(1)
+    lo = np.arange(size) + o - n_linear
+    hi = lo + w
+    box = (c[hi][:, hi] - c[lo][:, hi] - c[hi][:, lo] + c[lo][:, lo])
+    return int((box > 0).sum())
+
+
+def window_bound(cells, size, n_linear):
+    """Least time for one window on an H100 SXM: the larger of its bytes
+    over HBM bandwidth (the grid cells it reads, window_grid_cells, as
+    float32; the int32 cells; the float64 volume written) and its float64
+    adds (R W^2 N; the R W^2 divisions left out) over the float64 add
+    rate. Returns (bound ms, what bounds it)."""
+    _, r, n = cells.shape
+    w = 2 * n_linear + 1
+    nbytes = (window_grid_cells(cells, size, n_linear) * 4 + cells.size * 4
+              + r * w * w * 8)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = r * w * w * n / PEAK_F64_ADDS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations")
+
+
+def replay_windows(calls, timed=True):
+    """Every recorded card window through correlate_window_host (numpy
+    on the host, on a float64 copy of the same grid; np.array_equal on
+    the volume), each numpy call's seconds; with `timed`, the kernel's
+    launch on the same cells timed on the card (time_ms: five launches
+    behind a sleeping kernel, their mean) and the window's bound."""
+    unequal = []
+    ms = plain_ms = err = 0.0
+    by = {"bytes": 0.0, "operations": 0.0}
+    for k, ((grid, origin, res, pts, thetas, n_linear), out) in enumerate(
+            calls):
+        host_grid = grid.cpu().numpy().astype(np.float64)
+        t0 = time.perf_counter()
+        want = matching_mod.correlate_window_host(host_grid, origin, res,
+                                                  pts, thetas, n_linear)
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(out, want):
+            unequal.append(k)
+        err = max(err, float(np.abs(out - want).max()))
+        if timed:
+            cells = matching_mod._packed_cells(origin, res, pts, thetas,
+                                               n_linear, grid.shape[0])
+            dev_cells = torch.from_numpy(cells).to(grid.device)
+            ms += time_ms(lambda: pin_window_cuda.pin_window_cuda(
+                grid, dev_cells, n_linear, matching_mod.PMIN), 5,
+                warmup=1)
+            b, bound_by = window_bound(cells, grid.shape[0], n_linear)
+            by[bound_by] += b
+    return {"windows": len(calls), "windows_unequal": unequal,
+            "windows_max_abs_err": err,
+            "windows_device_ms": ms if timed else None,
+            "windows_plain_ms": plain_ms,
+            "windows_bound_ms": sum(by.values()) if timed else None,
+            "windows_bound_by": max(by, key=by.get) if timed else None}
+
+
 @contextlib.contextmanager
 def mesh_hooks(n):
     """Every SubmapLoopCloser built inside gets 2-shard-style meshes of
@@ -2023,17 +2146,20 @@ def phase_full(world, phase, out_dir):
         solves = SolveRecorder()
         refines = RefineRecorder()
         pins = PinRecorder()
+        windows = WindowRecorder()
         cleanup = CleanupRecorder()
         tee = Tee(sys.stdout)
         queries = FusedQueryCounter()
         os.environ["SLAM_LOG_MATCHES"] = "1"
         grid_cuda.reset_launches(grid_cuda.insert_rays_cuda,
                                  refine_cuda.refine_cuda,
-                                 refine_cuda.refine_pins_cuda)
+                                 refine_cuda.refine_pins_cuda,
+                                 pin_window_cuda.pin_window_cuda)
         t0 = time.perf_counter()
         try:
             with rec.active(), solves.active(), refines.active(), \
-                    pins.active(), cleanup.active(), queries.active(), \
+                    pins.active(), windows.active(), cleanup.active(), \
+                    queries.active(), \
                     (mesh_hooks(ref["mesh"]) if ref.get("mesh")
                      else contextlib.nullcontext({})) as meshed, \
                     contextlib.redirect_stdout(tee):
@@ -2048,6 +2174,7 @@ def phase_full(world, phase, out_dir):
         launches = grid_cuda.insert_rays_cuda.launches
         refine_launches = refine_cuda.refine_cuda.launches
         pins_launches = refine_cuda.refine_pins_cuda.launches
+        window_launches = pin_window_cuda.pin_window_cuda.launches
         cmp = compare_run(world, tee.buf.getvalue(),
                           os.path.join(data, f"{dataset}.result"))
         decisions = cmp.pop("decisions")
@@ -2069,6 +2196,7 @@ def phase_full(world, phase, out_dir):
         replay["refine_replay_s"] = time.perf_counter() - t1
         refine_unequal = replay["refine_calls_unequal"]
         pins_replay = replay_pins(pins.calls)
+        window_replay = replay_windows(windows.calls)
 
         sysm = r.system
         be = sysm.backend
@@ -2109,6 +2237,16 @@ def phase_full(world, phase, out_dir):
                             f"for {len(pins.calls)} pin batches")
         if bool(ref.get("accel")) != bool(pins.calls):
             problems.append(f"{len(pins.calls)} device pin batches")
+        if window_launches != len(windows.calls):
+            problems.append(f"{window_launches} pin window launches for "
+                            f"{len(windows.calls)} windows")
+        if ref.get("accel") and windows.calls:
+            problems.append(f"{len(windows.calls)} host pin windows on the "
+                            f"accelerator branch")
+        if window_replay["windows_unequal"]:
+            problems.append(f"pin windows differ from "
+                            f"correlate_window_host: "
+                            f"{window_replay['windows_unequal'][:5]}")
         if pins_replay["pins_calls_unequal"]:
             problems.append(f"pin batches differ from the batched plain "
                             f"version: "
@@ -2158,7 +2296,8 @@ def phase_full(world, phase, out_dir):
             "refine_calls": len(refines.calls),
             "refine_calls_replayed": len(refines.calls), **replay,
             "pins_launches": pins_launches, "pin_batches": len(pins.calls),
-            **pins_replay, **meshed,
+            **pins_replay, "window_launches": window_launches,
+            **window_replay, **meshed,
             "decision_lines": len(decisions), "decision_log": log_path,
             "problems": problems,
             **solve_info,
@@ -2184,6 +2323,8 @@ def phase_full(world, phase, out_dir):
         return {"launches": launches, "insertions": rec.calls,
                 "refine_launches": refine_launches, "replay": replay,
                 "pins_launches": pins_launches, "pins_replay": pins_replay,
+                "window_launches": window_launches,
+                "window_replay": window_replay,
                 "frontend_ms": ft * 1e3,
                 "split": {**prof_s, "final_cleanup": cleanup.cleanup_s,
                           "frame_loop": r.wall_s},
@@ -2262,12 +2403,14 @@ def phase_realtime(world, rate, out_dir, batch_ms, frames=None):
         png = os.path.join(tmp, "map.png")
         rec, refines, tee = InsertRecorder(), RefineRecorder(), Tee(
             sys.stdout)
+        windows = WindowRecorder()
         grid_cuda.reset_launches(grid_cuda.insert_rays_cuda,
-                                 refine_cuda.refine_cuda)
+                                 refine_cuda.refine_cuda,
+                                 pin_window_cuda.pin_window_cuda)
         problems, r = [], None
         t0 = time.perf_counter()
         try:
-            with rec.active(), refines.active(), \
+            with rec.active(), refines.active(), windows.active(), \
                     contextlib.redirect_stdout(tee):
                 r = runner.run([
                     "--dataset-dir", data, "--dataset-name", dataset,
@@ -2282,7 +2425,9 @@ def phase_realtime(world, rate, out_dir, batch_ms, frames=None):
         # read before the replays, whose timing launches the kernels too
         launches = {
             "insert_rays": dict(grid_cuda.insert_rays_cuda.launches_by_thread),
-            "refine_pose": dict(refine_cuda.refine_cuda.launches_by_thread)}
+            "refine_pose": dict(refine_cuda.refine_cuda.launches_by_thread),
+            "pin_window": dict(
+                pin_window_cuda.pin_window_cuda.launches_by_thread)}
         live_maps = [k for k, name in enumerate(rec.call_threads)
                      if name == LIVE_VIEW_THREAD]
         keep = np.linspace(0, len(live_maps) - 1,
@@ -2292,6 +2437,7 @@ def phase_realtime(world, rate, out_dir, batch_ms, frames=None):
                    if k not in skip
                    and not torch.equal(out, insert_rays_plain(*args))]
         replay = replay_refinements(refines.calls)
+        window_replay = replay_windows(windows.calls, timed=False)
         text = tee.buf.getvalue()
         lines = text.splitlines()
 
@@ -2340,6 +2486,13 @@ def phase_realtime(world, rate, out_dir, batch_ms, frames=None):
         if sum(launches["refine_pose"].values()) != len(refines.calls):
             problems.append(f"refinement launches {launches} for "
                             f"{len(refines.calls)} refinements")
+        if sum(launches["pin_window"].values()) != len(windows.calls):
+            problems.append(f"pin window launches {launches} for "
+                            f"{len(windows.calls)} windows")
+        if window_replay["windows_unequal"]:
+            problems.append(f"pin windows differ from "
+                            f"correlate_window_host: "
+                            f"{window_replay['windows_unequal'][:5]}")
         reading.update({
             "done_line": line_of("done:"), "backend_line": line_of("backend:"),
             "closures_line": line_of("closures:"),
@@ -2354,6 +2507,9 @@ def phase_realtime(world, rate, out_dir, batch_ms, frames=None):
             "insertions_unequal": unequal,
             "refinements_replayed": len(refines.calls),
             "refine_calls_unequal": replay["refine_calls_unequal"],
+            "windows_by_thread": windows.threads,
+            "windows_replayed": len(windows.calls),
+            "windows_unequal": window_replay["windows_unequal"],
             "total_s": total_s, "problems": problems,
         })
         emit(reading)
@@ -2362,6 +2518,8 @@ def phase_realtime(world, rate, out_dir, batch_ms, frames=None):
         return {"launches": sum(launches["insert_rays"].values()),
                 "refine_launches": sum(launches["refine_pose"].values()),
                 "replay": replay,
+                "window_launches": sum(launches["pin_window"].values()),
+                "window_replay": window_replay,
                 "problems": [f"realtime {world}: " + "; ".join(problems)]
                 if problems else []}
     finally:
@@ -2479,20 +2637,24 @@ def phase_resume(out_dir):
     grid rebuilds and the continuations, and every refinement, replayed
     through the plain version (torch.equal each); fails on any of
     resume_problems."""
-    rec, refines = InsertRecorder(), RefineRecorder()
+    rec, refines, windows = InsertRecorder(), RefineRecorder(), \
+        WindowRecorder()
     grid_cuda.reset_launches(grid_cuda.insert_rays_cuda,
-                             refine_cuda.refine_cuda)
+                             refine_cuda.refine_cuda,
+                             pin_window_cuda.pin_window_cuda)
     t0 = time.perf_counter()
-    with rec.active(), refines.active():
+    with rec.active(), refines.active(), windows.active():
         reading = resume_continuations(
             "cuda", os.path.join(out_dir, "resume-port.npz"))
     torch.cuda.synchronize()
     # read before the replays, whose timing launches the kernels too
     launches = grid_cuda.insert_rays_cuda.launches
     refine_launches = refine_cuda.refine_cuda.launches
+    window_launches = pin_window_cuda.pin_window_cuda.launches
     unequal = [k for k, (_, args, out) in enumerate(rec.calls)
                if not torch.equal(out, insert_rays_plain(*args))]
     replay = replay_refinements(refines.calls)
+    window_replay = replay_windows(windows.calls, timed=False)
     problems = resume_problems(reading)
     if not rec.calls or unequal:
         problems.append(f"{len(rec.calls)} insertions, unequal {unequal[:5]}")
@@ -2505,6 +2667,12 @@ def phase_resume(out_dir):
     if refine_launches != len(refines.calls):
         problems.append(f"{refine_launches} refinement launches for "
                         f"{len(refines.calls)} refinements")
+    if window_launches != len(windows.calls):
+        problems.append(f"{window_launches} pin window launches for "
+                        f"{len(windows.calls)} windows")
+    if window_replay["windows_unequal"]:
+        problems.append(f"pin windows differ from correlate_window_host: "
+                        f"{window_replay['windows_unequal'][:5]}")
     emit({"phase": "resume", **reading, "insertion_launches": launches,
           "insertions_by_phase": {
               ph: sum(1 for c in rec.calls if c[0] == ph)
@@ -2512,9 +2680,12 @@ def phase_resume(out_dir):
           "insertions_unequal": unequal,
           "refine_launches": refine_launches,
           "refine_calls_unequal": replay["refine_calls_unequal"],
+          "window_launches": window_launches,
+          "windows_unequal": window_replay["windows_unequal"],
           "seconds": time.perf_counter() - t0, "problems": problems})
     return {"launches": launches, "refine_launches": refine_launches,
-            "replay": replay,
+            "replay": replay, "window_launches": window_launches,
+            "window_replay": window_replay,
             "problems": ["resume: " + "; ".join(problems)] if problems
             else []}
 
@@ -3522,6 +3693,47 @@ def pins_kernel_line(runs):
     }
 
 
+def window_kernel_line(runs):
+    """The kernels line's entry for the pin window kernel: its launches
+    by path (each counted from 0 before the path's run), its volumes
+    against correlate_window_host on every path, and its time on the
+    card, numpy's on the card's host and the bound, summed over the
+    sim-killian run's windows (and, under by_path, over each full run's)."""
+    killian = runs["killian"]["window_replay"]
+    replays = [v["window_replay"] for v in runs.values()
+               if "window_replay" in v]
+    return {
+        "name": "pin_window",
+        "route": "cuda",
+        "source": "sparse_gslam_tpu_torch/csrc/pin_window.cu",
+        "replaces": "sparse_gslam_tpu/ops/matching.py:1460",
+        "replaces_what": "correlate_window_host, numpy gathers on the "
+                         "host; no Pallas kernel",
+        "launches": sum(v.get("window_launches", 0) for v in runs.values()),
+        "launches_by_path": {k: v.get("window_launches", 0)
+                             for k, v in runs.items()},
+        "timed_launches": killian["windows"],
+        "max_abs_err": max([r["windows_max_abs_err"] for r in replays]
+                           or [0.0]),
+        "matched": not any(r["windows_unequal"] for r in replays),
+        "tolerance": "bit-exact (np.array_equal)",
+        "ms": killian["windows_device_ms"],
+        "plain_ms": killian["windows_plain_ms"],
+        "bound_ms": killian["windows_bound_ms"],
+        "bound_by": killian["windows_bound_by"],
+        "library_ms": None,
+        "timed": f"sum over the sim-killian run's {killian['windows']} "
+                 f"windows",
+        "by_path": {k: {"windows": r["windows"],
+                        "ms": r["windows_device_ms"],
+                        "plain_ms": r["windows_plain_ms"],
+                        "bound_ms": r["windows_bound_ms"]}
+                    for k, r in ((k, v.get("window_replay", {}))
+                                 for k, v in runs.items())
+                    if r.get("windows_device_ms") is not None},
+    }
+
+
 def time_run_calls(calls):
     """The kernel, its plain twin and the bound, each summed over the
     main path's insertions (device ms; the plain twin once per call)."""
@@ -3625,6 +3837,8 @@ def main() -> int:
                                     "sim-office-mesh", "mesh_office",
                                     args.out)
     failed = checks + [p for r in runs.values() for p in r["problems"]]
+    if not runs["killian"]["window_launches"]:
+        failed.append("sim-killian: no pin window reached the kernel")
     killian = runs["killian"]
     ms, plain_ms, bound_ms, bound_by, err = timed(
         "kernels", time_run_calls, killian["insertions"])
@@ -3677,7 +3891,7 @@ def main() -> int:
         "timed": f"sum over the sim-killian run's "
                  f"{killian['refine_launches']} refinements",
         "by_n": {k: v["replay"]["refine_by_n"] for k, v in runs.items()},
-    }, pins_kernel_line(runs)]})
+    }, pins_kernel_line(runs), window_kernel_line(runs)]})
     print(smi, flush=True)
     emit({"seconds": seconds, "total_s": time.perf_counter() - t_start})
     if failed:

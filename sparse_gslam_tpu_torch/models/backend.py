@@ -9,8 +9,9 @@ Port of sparse_gslam_tpu/models/backend.py, its CPU branch:
   a multicloud, ray-trace it into a match-resolution grid + a fixed
   0.05 m high-res grid (the CUDA insertion kernel on the card), anchor
   at the middle keyframe, precompute the max-pool pyramid; then the
-  per-keyframe pins (host numpy window correlation) and the submap
-  chain edges (Gauss-Newton on the previous submaps' grids).
+  per-keyframe pins (window correlation: numpy on the CPU, a CUDA
+  kernel on the card) and the submap chain edges (Gauss-Newton on the
+  previous submaps' grids).
 
   match(): build the query multiscan from the last ~last_traj_length of
   keyframes, select candidate submaps by distance, run the pruned
@@ -110,9 +111,8 @@ class Submap:
     # from (for the local-refinement non-overlap constraint)
     start_idx: int = 0
     end_idx: int = 0
-    # lazily-cached host copies of score_grid and pooled_grid (the
-    # per-keyframe pins score their small windows with numpy gathers)
-    score_grid_np: object = None
+    # lazily-cached host copy of pooled_grid (the per-keyframe pins
+    # bound their windows with numpy gathers)
     pooled_np: object = None
     # lazily-cached (F, F//2+1) spectrum of score_grid (the accelerator
     # branch's fused matcher and pin batches read it; dropped when
@@ -159,6 +159,11 @@ class SubmapLoopCloser:
         self.frontend = frontend
         self.rec = rec if rec is not None else Recorder()
         self.device = torch.device(device)
+        if self.device.type == "cuda":
+            # the pins' window kernel, built before the first tick
+            from ..ops import pin_window_cuda
+
+            pin_window_cuda.load()
         # the JAX package's accelerator branch (module docstring)
         self.accel_branch = bool(accel_branch)
         # its device stacks of every submap's spectrum and high-res
@@ -649,11 +654,6 @@ class SubmapLoopCloser:
         floor = np.diag([floor_xy**2, floor_xy**2, floor_th**2])
         return censi_cov + excess + floor
 
-    def _score_grid_host(self, sm: Submap):
-        if sm.score_grid_np is None:
-            sm.score_grid_np = sm.score_grid.cpu().numpy().astype(np.float64)
-        return sm.score_grid_np
-
     def _pooled_grid_host(self, sm: Submap):
         if sm.pooled_np is None:
             sm.pooled_np = sm.pooled_grid.cpu().numpy().astype(np.float64)
@@ -663,9 +663,10 @@ class SubmapLoopCloser:
         """Small-window exhaustive correlative match of a short query
         against one submap, centered on the pose-estimate seed -- the
         per-keyframe pin measurement: exact pooled bound first, then
-        the host window correlation of the score grid, then
-        _pin_accept on the high-res grid. Returns (refined, cov, score,
-        None) or (None, None, None, reason)."""
+        the window correlation of the score grid (the kernel on the
+        card, numpy on the CPU), then _pin_accept on the high-res grid.
+        Returns (refined, cov, score, None) or (None, None, None,
+        reason)."""
         cfg = self.config
         res = float(sm.resolution)
         max_range = float(np.linalg.norm(query, axis=1).max())
@@ -687,10 +688,11 @@ class SubmapLoopCloser:
             self.prof["pin_bound"] += _t.seconds
             if bound < cfg.kf_min_score:
                 return None, None, None, "bound"
+        # ends in the volume's host read, so it times the kernel too
         with self.rec.timed("slam.backend.pin_window") as _t:
-            scores = matching.correlate_window_host(
-                self._score_grid_host(sm), origin, res, query, thetas,
-                spec.n_linear,
+            scores = matching.correlate_window(
+                sm.score_grid, origin, res, query, thetas, spec.n_linear,
+                self.rec,
             )
         self.prof["pin_window"] += _t.seconds
         return self._pin_accept(scores, thetas, spec, seed, sm, query, res)
@@ -894,7 +896,7 @@ class SubmapLoopCloser:
         return self._kf_edges_host(pending)
 
     def _kf_edges_host(self, pending) -> int:
-        """Direct numpy window correlation against host-cached grids."""
+        """One pin at a time: _pin_match_grid, then _pin_finish."""
         made = 0
         for j, smi, query, seed in pending:
             sm = self.submaps[smi]
@@ -1206,10 +1208,9 @@ class SubmapLoopCloser:
                     )
                     ks = np.arange(-spec.n_angular, spec.n_angular + 1)
                     thetas = refined[2] + ks * spec.angular_step
-                    scores = matching.correlate_window_host(
-                        self._score_grid_host(sm),
-                        _host(sm.origin)[0] - refined[:2], res, query,
-                        thetas, spec.n_linear,
+                    scores = matching.correlate_window(
+                        sm.score_grid, _host(sm.origin)[0] - refined[:2],
+                        res, query, thetas, spec.n_linear, self.rec,
                     )
                     wcov = matching.score_volume_cov(
                         scores, thetas, refined[2], res, spec.n_linear
@@ -1237,7 +1238,6 @@ class SubmapLoopCloser:
             )
             (sm.score_grid, sm.pooled_grid, sm.probs, sm.origin,
              sm.high_res, sm.high_origin) = self._build_grids(rd)
-            sm.score_grid_np = None
             sm.pooled_np = None
             sm.spectrum = None
         self._spectra_stack = None

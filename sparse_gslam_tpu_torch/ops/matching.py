@@ -23,8 +23,10 @@ round as the JAX package's compiled CPU program does. `match_submap`
 candidates) drive the same correlator; `score_pose` scores one pose and
 `pin_bounds_batch` bounds a batch of pins on the device. The pin
 helpers (`pin_bound_host`, `correlate_window_host`, `score_volume_cov`)
-are numpy on the host, as in the JAX package. The last section ports
-the JAX package's accelerator branch (`fused_match`,
+are numpy on the host, as in the JAX package; `correlate_window` scores
+a pin's window with the CUDA kernel of ops/pin_window_cuda.py where the
+score grid is on the card, bit-equal to `correlate_window_host`. The
+last section ports the JAX package's accelerator branch (`fused_match`,
 `match_candidates_fused`, `pin_eval_batch`), which
 models/backend.py runs with accel_branch, and the JAX package's
 throughput measurement of the fused matcher
@@ -1352,6 +1354,49 @@ def pin_bounds_batch(
     return (_tree_sum_last(vals) / n[:, None]).amax(-1)
 
 
+def _window_cells(origin, resolution: float, points, thetas):
+    """(R, N) int64 cells of the points under each rotation, in numpy's
+    float64 (correlate_window_host's and correlate_window's)."""
+    c, s = np.cos(thetas), np.sin(thetas)
+    px = c[:, None] * points[None, :, 0] - s[:, None] * points[None, :, 1]
+    py = s[:, None] * points[None, :, 0] + c[:, None] * points[None, :, 1]
+    cx = np.floor((px - origin[0]) / resolution).astype(np.int64)
+    cy = np.floor((py - origin[1]) / resolution).astype(np.int64)
+    return cx, cy
+
+
+def _packed_cells(origin, resolution: float, points, thetas, n_linear: int,
+                  size: int):
+    """_window_cells as the kernel takes them: (2, R, N) int32, clipped
+    to [-n_linear - 1, size + n_linear], beyond which every offset of the
+    window leaves the grid alike (so no shifted cell overflows)."""
+    cells = np.stack(_window_cells(origin, resolution, points, thetas))
+    return np.clip(cells, -n_linear - 1, size + n_linear).astype(np.int32)
+
+
+def correlate_window(score_grid, origin, resolution: float, points, thetas,
+                     n_linear: int, rec):
+    """correlate_window_host's (R, W, W) float64 volume, on the device
+    that holds `score_grid` (an (S, S) float32 tensor, or numpy). On a
+    CUDA grid the cells are computed on the host as there, uploaded, and
+    the kernel (ops/pin_window_cuda.py) adds each output's gathered
+    values in numpy's order, so the volume is bit-equal; it comes back
+    with one host read. Anything else runs correlate_window_host. Counts
+    pin_window.device or pin_window.host in the recorder `rec`."""
+    if isinstance(score_grid, torch.Tensor) and score_grid.is_cuda:
+        from . import pin_window_cuda
+
+        rec.count("pin_window.device")
+        cells = _packed_cells(origin, resolution, points, thetas, n_linear,
+                              score_grid.shape[0])
+        return pin_window_cuda.pin_window_cuda(
+            score_grid, torch.from_numpy(cells).to(score_grid.device),
+            n_linear, PMIN).cpu().numpy()
+    rec.count("pin_window.host")
+    return correlate_window_host(np.asarray(score_grid, np.float64), origin,
+                                 resolution, points, thetas, n_linear)
+
+
 def correlate_window_host(
     score_grid,  # (S, S) numpy level-0 (dilated) score grid
     origin,  # (2,)
@@ -1365,11 +1410,7 @@ def correlate_window_host(
     below FFT break-even). Same score function as correlate_rotations
     (mean of grid values, PMIN out-of-grid). Returns (R, W, W)."""
     S = score_grid.shape[0]
-    c, s = np.cos(thetas), np.sin(thetas)
-    px = c[:, None] * points[None, :, 0] - s[:, None] * points[None, :, 1]
-    py = s[:, None] * points[None, :, 0] + c[:, None] * points[None, :, 1]
-    cx = np.floor((px - origin[0]) / resolution).astype(np.int64)
-    cy = np.floor((py - origin[1]) / resolution).astype(np.int64)
+    cx, cy = _window_cells(origin, resolution, points, thetas)
     d = np.arange(-n_linear, n_linear + 1)
     gx = cx[:, :, None] + d[None, None, :]  # (R, N, W)
     gy = cy[:, :, None] + d[None, None, :]

@@ -252,7 +252,7 @@ def run(argv=None) -> RunResult:
         counts = system.rec.counts
         print("counters: " + ", ".join(
             f"{k} {v}" for k, v in sorted(counts.items())
-            if k.startswith(("lm.", "pg.", "pins."))))
+            if k.startswith(("lm.", "pg.", "pins.", "pin_window."))))
         print("lm shapes (P, L, E) x solves: " + ", ".join(
             f"({p}, {l}, {e}) x {n}" for p, l, e, n in shape_counts(
                 system.rec)))
